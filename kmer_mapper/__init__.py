@@ -5,7 +5,7 @@ KAGE and other callers of ivargr/kmer_mapper import ``kmer_mapper.mapper``,
 ``kmer_mapper.gpu_counter`` and ``kmer_mapper.encodings``
 (reference ``setup.py:20-24`` packages exactly these modules). This package
 provides the same module paths, each a thin re-export of the corresponding
-``kmer_mapper_tpu`` module, so switching to the TPU framework requires ZERO
+``kmer_mapper_tpu`` module, so switching to this framework requires ZERO
 import edits.
 
 The reference's own ``__init__.py`` is empty (``kmer_mapper/__init__.py``);

@@ -1,10 +1,11 @@
-"""kmer_mapper_tpu: a TPU-native (JAX/XLA/Pallas) k-mer mapping framework.
+"""kmer_mapper_tpu: a JAX/XLA k-mer mapping framework for the GPU.
 
 From-scratch rebuild of the capabilities of ivargr/kmer_mapper: stream
 FASTA/FASTQ (optionally gzipped) short reads, 2-bit-encode, extract
 rolling-window k-mer hashes, probe them against a graph k-mer index resident
-in HBM, and accumulate per-graph-node hit counts — bit-exact against the
-reference's numpy/Cython semantics, scaling over TPU meshes via shard_map.
+in device memory, and accumulate per-graph-node hit counts — bit-exact
+against the reference's numpy/Cython semantics, scaling over several devices
+via shard_map.
 """
 
 from . import oracle

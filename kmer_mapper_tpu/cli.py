@@ -13,10 +13,10 @@ Differences, deliberate:
   same 1000, so default behavior matches bit-for-bit).
 * boolean flags accept true/false strings but are parsed robustly (the
   reference's ``type=bool`` makes any non-empty string truthy).
-* ``--gpu`` is accepted for drop-in compatibility and ignored: the accelerator
-  (TPU) is always used when present.
-* extra subcommand ``convert-index`` prebuilds the TPU table layout so large
-  indexes skip re-layout on every run.
+* ``--gpu`` is accepted for drop-in compatibility and ignored: JAX's default
+  device (the GPU) runs the mapping.
+* extra subcommand ``convert-index`` prebuilds the device table layout so
+  large indexes skip re-layout on every run.
 """
 from __future__ import annotations
 
@@ -40,12 +40,15 @@ def _parse_bool(value) -> bool:
 
 
 def main(argv=None):
+    from .utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     run_argument_parser(sys.argv[1:] if argv is None else argv)
 
 
 def run_argument_parser(args):
     parser = argparse.ArgumentParser(
-        description="TPU-native Kmer Mapper",
+        description="Kmer Mapper on JAX",
         prog="kmer_mapper_tpu",
         formatter_class=lambda prog: argparse.HelpFormatter(
             prog, max_help_position=50, width=100
@@ -136,7 +139,7 @@ def run_argument_parser(args):
     sub.set_defaults(func=_cmd_map)
 
     conv = subparsers.add_parser(
-        "convert-index", help="Prebuild the TPU table layout from a reference .npz index"
+        "convert-index", help="Prebuild the device table layout from a reference .npz index"
     )
     conv.add_argument("-i", "--kmer-index", required=True)
     conv.add_argument("-o", "--output-file", required=True)
@@ -223,7 +226,7 @@ def _cmd_convert_index(args):
         out += ".npz"
     index.to_file(out)
     logger.info(
-        "Wrote TPU index (%d unique kmers, %d buckets) to %s",
+        "Wrote prebuilt index (%d unique kmers, %d buckets) to %s",
         index.n_unique,
         index.table.n_buckets,
         out,

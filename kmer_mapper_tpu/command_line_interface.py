@@ -2,7 +2,7 @@
 
 The reference exposes ``main`` / ``run_argument_parser`` and the driver
 ``map_bnp(args)`` (``kmer_mapper/command_line_interface.py:28,82,155``); this
-module maps them onto the TPU CLI so programmatic callers survive the package
+module maps them onto this package's CLI so programmatic callers survive the package
 rename. ``map_bnp`` accepts the reference's parsed-args object (including an
 in-memory ``kmer_index``) and returns the node counts when ``output_file`` is
 None, exactly like the reference.
@@ -48,7 +48,7 @@ def map_cpu(args, kmer_index, chunk_sequence):
     a (bases, lengths) pair — rather than a shared-memory name. N→A
     substitution happens inside the hasher, exactly as the reference does it
     before hashing (``:40-41``)."""
-    from .compat import _as_tpu_index, map_kmers_to_graph_index
+    from .compat import _as_device_index, map_kmers_to_graph_index
     from .util import get_kmer_hashes_from_chunk_sequence
 
     kmer_size = (
@@ -56,8 +56,8 @@ def map_cpu(args, kmer_index, chunk_sequence):
         else getattr(args, "kmer_size", 31)
     )
     hashes = get_kmer_hashes_from_chunk_sequence(chunk_sequence, kmer_size)
-    tpu = _as_tpu_index(kmer_index)
-    return map_kmers_to_graph_index(tpu, tpu.max_node_id, hashes)
+    dev_index = _as_device_index(kmer_index)
+    return map_kmers_to_graph_index(dev_index, dev_index.max_node_id, hashes)
 
 
 def map_gpu(index, chunks, k, hash_map_size=0, map_reverse_complements=False):
@@ -68,7 +68,7 @@ def map_gpu(index, chunks, k, hash_map_size=0, map_reverse_complements=False):
     ``.sequence`` (reference shape) or raw sequence lists."""
     import numpy as np
 
-    from .compat import TpuCounter, _as_tpu_index
+    from .compat import TpuCounter, _as_device_index
     from .util import get_kmer_hashes_from_chunk_sequence
 
     kmers = getattr(index, "_kmers", None)
@@ -76,13 +76,13 @@ def map_gpu(index, chunks, k, hash_map_size=0, map_reverse_complements=False):
     if kmers is None or nodes is None:
         from .ops.u32hash import feistel_unmix, join_u64
 
-        tpu = _as_tpu_index(index)
-        m_lo, m_hi = tpu.table.key_words()
-        slot = tpu.entry_slot
+        dev_index = _as_device_index(index)
+        m_lo, m_hi = dev_index.table.key_words()
+        slot = dev_index.entry_slot
         kmers = join_u64(
-            *feistel_unmix(m_lo[slot], m_hi[slot], seed=tpu.table.seed)
+            *feistel_unmix(m_lo[slot], m_hi[slot], seed=dev_index.table.seed)
         )
-        nodes = tpu.entry_node
+        nodes = dev_index.entry_node
     kmers = np.asarray(kmers, dtype=np.uint64)
     nodes = np.asarray(nodes)
     counter = TpuCounter.from_kmers_and_nodes(kmers, nodes, k)

@@ -32,7 +32,7 @@ _path_cache: dict[str, TpuKmerIndex] = {}
 _obj_cache: dict[int, TpuKmerIndex] = {}
 
 
-def _as_tpu_index(index) -> TpuKmerIndex:
+def _as_device_index(index) -> TpuKmerIndex:
     if isinstance(index, TpuKmerIndex):
         return index
     if isinstance(index, (str, os.PathLike)):
@@ -52,16 +52,16 @@ def _as_tpu_index(index) -> TpuKmerIndex:
     return hit
 
 
-def _shared_mapper(tpu: TpuKmerIndex, k: int = 31) -> KmerMapper:
+def _shared_mapper(dev_index: TpuKmerIndex, k: int = 31) -> KmerMapper:
     # keyed per k (not "the last k"): a library caller alternating k between
     # calls must not rebuild the device table / recompile every call — the
     # reference's call surface is k-agnostic (``mapper.pyx:19``)
-    mappers = getattr(tpu, "_compat_mappers", None)
+    mappers = getattr(dev_index, "_compat_mappers", None)
     if mappers is None:
-        mappers = tpu._compat_mappers = {}
+        mappers = dev_index._compat_mappers = {}
     mapper = mappers.get(k)
     if mapper is None:
-        mapper = mappers[k] = KmerMapper(tpu, MapperConfig(k=k, buf=256, max_reads=16))
+        mapper = mappers[k] = KmerMapper(dev_index, MapperConfig(k=k, buf=256, max_reads=16))
     return mapper
 
 
@@ -78,8 +78,8 @@ def map_kmers_to_graph_index(
     argument is honored. Repeated calls with the same index reuse the cached
     device table (no rebuild)."""
     assert kmers is not None, "kmers required"
-    tpu = _as_tpu_index(index)
-    mapper = _shared_mapper(tpu)
+    dev_index = _as_device_index(index)
+    mapper = _shared_mapper(dev_index)
     mapper.reset_counts()
     mapper.map_hashes(np.asarray(kmers, dtype=np.uint64))
     counts = mapper.node_counts(max_frequency=max_index_lookup_frequency)
@@ -103,8 +103,8 @@ def in_graph_index(
 ) -> np.ndarray:
     """uint8[n] membership per kmer (``mapper.pyx:81-130``; the reference also
     ignores the frequency argument for membership)."""
-    tpu = _as_tpu_index(index)
-    return _shared_mapper(tpu).in_index(np.asarray(kmers, dtype=np.uint64))
+    dev_index = _as_device_index(index)
+    return _shared_mapper(dev_index).in_index(np.asarray(kmers, dtype=np.uint64))
 
 
 class TpuCounter:

@@ -1,4 +1,4 @@
-"""Index loading and the TPU-resident index structure.
+"""Index loading and the device-resident index structure.
 
 Input formats mirror the reference's index resolution
 (``kmer_mapper/util.py:38-68``):
@@ -65,7 +65,7 @@ def load_reference_npz(path_or_file) -> KmerIndexArrays:
         fields["frequencies"] = np.ones(n, dtype=np.uint16)  # minimal index form
     if fields["n_kmers"] is None:
         # bucket lengths are derivable from consecutive bucket start offsets
-        # (best effort; only the oracle probe uses them — the TPU layout is
+        # (best effort; only the oracle probe uses them — the device layout is
         # rebuilt from the entry arrays regardless)
         starts = fields["hashes_to_index"].astype(np.int64)
         fields["n_kmers"] = np.maximum(np.diff(np.append(starts, n)), 0)
@@ -235,8 +235,7 @@ class TpuKmerIndex:
             if not 1 <= max_probe <= layout.MAX_PROBE_HARD:
                 # no build configuration produces chains this deep: a value
                 # outside the hard bound means a corrupt/foreign file (the
-                # stream kernel additionally checks that its schedule covers
-                # max_probe at the configured chain augmentation)
+                # probe unrolls max_probe rounds, so it must stay bounded)
                 raise ValueError(
                     f"corrupt .tpuidx: table_max_probe={max_probe} outside "
                     f"[1, {layout.MAX_PROBE_HARD}]"
@@ -281,7 +280,7 @@ def load_index(source) -> TpuKmerIndex:
     if not path.endswith(".npz") and os.path.exists(path + ".npz"):
         path = path + ".npz"
     if _is_tpuidx(path):
-        logger.info("Loading prebuilt TPU index %s", path)
+        logger.info("Loading prebuilt index %s", path)
         return TpuKmerIndex.from_file(path)
     # counter-style npz?
     try:
@@ -308,7 +307,7 @@ def load_index(source) -> TpuKmerIndex:
             return load_bundle(path)
         raise
     logger.info(
-        "Loaded reference-format index: %d entries, modulo %d; re-laying out for TPU",
+        "Loaded reference-format index: %d entries, modulo %d; re-laying out for the device",
         len(arrays.kmers),
         arrays.modulo,
     )

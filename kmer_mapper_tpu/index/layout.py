@@ -1,29 +1,21 @@
 """Device table layout: block-chained bucketized hash table.
 
-TPU-native replacement for both of the reference's probe structures — the CPU
-bucketed index scan (``kmer_mapper/mapper.pyx:53-69``) and the CUDA
+The device replacement for both of the reference's probe structures — the
+CPU bucketed index scan (``kmer_mapper/mapper.pyx:53-69``) and the CUDA
 ``cucounter.Counter`` open-addressing table (``kmer_mapper/gpu_counter.py``).
 
-Two device probe strategies share this one layout:
-
-* **Stream probe (default on TPU, see ``ops/stream_probe.py``)**: queries are
-  sorted by bucket and the table is streamed tile-by-tile through VMEM; the
-  per-query "gather" inside a tile is a one-hot matmul on the MXU. Random HBM
-  access disappears entirely. To make tiles self-contained, collision chains
-  **wrap around inside aligned CHAIN_BLOCK-bucket blocks** — a chain never
-  leaves its block, so a kernel tile (or a mesh shard) never needs halo data.
-* **Gather probe (XLA fallback, CPU and sharded paths)**: per probe round, one
-  (n, 8)-uint32 row gather each from the lo- and hi-word arrays (measured
-  optimum on v5e: row gathers up to 8 x uint32 cost ~6 ns flat; 16-wide rows
-  are 4x worse, hence two 8-wide planes rather than one 16-wide row).
+The device probe (``ops/probe.py``) does, per probe round, one (n, 8)-uint32
+row gather each from the lo- and hi-word arrays. Collision chains **wrap
+around inside aligned CHAIN_BLOCK-bucket blocks**, so a chain never leaves
+its block: with block-aligned shards of a sharded table, a key's whole chain
+lives on one device.
 
 Buckets hold 8 keys; slots store the BIJECTIVELY MIXED key words
-(``u32hash.feistel_mix`` — no 64-bit modulo anywhere; TPU has no native
-int64), and the bucket id is the high bits of the mixed low word, so the
-query sort needs only two operands. The empty sentinel is the all-ones mixed
-pair; a key mixing to it reseeds the build (probability ~n/2^64). The default
-load factor keeps chains rare so the recorded ``max_probe`` stays small.
-Build is vectorized host numpy.
+(``u32hash.feistel_mix`` — 32-bit operations only, no 64-bit modulo), and the
+bucket id is the high bits of the mixed low word. The empty sentinel is the
+all-ones mixed pair; a key mixing to it reseeds the build (probability
+~n/2^64). The default load factor keeps chains rare so the recorded
+``max_probe`` stays small. Build is vectorized host numpy.
 """
 from __future__ import annotations
 
@@ -37,16 +29,13 @@ from ..ops.u32hash import bucket_from_mlo, feistel_mix, split_u64
 logger = logging.getLogger(__name__)
 
 BUCKET_KEYS = 8  # keys per bucket
-CHAIN_BLOCK = 128  # buckets per chain block (kernel tile / shard quantum; measured optimum on v5e)
+CHAIN_BLOCK = 128  # buckets per chain block (shard quantum; not re-measured on the GPU)
 EMPTY = np.uint32(0xFFFFFFFF)
-DEFAULT_MAX_LOAD = 0.5  # round-3 sweep: 0.5 beats 0.3 composed on v5e (half
-# the chain blocks -> half the table DMA and per-block tile floor; the extra
-# chain rounds are scheduled per block and stay cheap)
+DEFAULT_MAX_LOAD = 0.5  # table load factor (not re-measured on the GPU)
 MAX_PROBE_LIMIT = 8  # default chain bound: rebuild bigger if a chain would
-# exceed this. The stream kernel schedules ceil(chain/aug) rounds with a
-# 3-bit scheduled-round field, so denser tables built with a higher
-# ``max_probe_limit`` (up to aug << 3) are valid when probed with matching
-# chain augmentation (aug_keys); MAX_PROBE_HARD bounds any loadable table.
+# exceed this. The gather probe runs max_probe rounds for every query, so
+# the bound is also its cost; denser tables built with a higher
+# ``max_probe_limit`` stay valid. MAX_PROBE_HARD bounds any loadable table.
 MAX_PROBE_HARD = 64
 
 
@@ -56,9 +45,8 @@ class TableArrays:
 
     Slots store the **bijectively mixed** key words (``u32hash.feistel_mix``),
     not the raw kmer: equality of mixed words is equality of kmers, the bucket
-    id is ``key_lo >> bucket_shift(n_buckets)``, and queries sort by their
-    mixed low word alone (2 sort operands instead of 3 — see u32hash docs).
-    ``key_words``/``kmer view`` callers unmix on the host."""
+    id is ``key_lo >> bucket_shift(n_buckets)``. ``key_words``/``kmer
+    view`` callers unmix on the host."""
 
     key_lo: np.ndarray  # uint32[n_buckets, BUCKET_KEYS] (mixed)
     key_hi: np.ndarray  # uint32[n_buckets, BUCKET_KEYS] (mixed)
@@ -82,49 +70,6 @@ class TableArrays:
         """(m_lo, m_hi) MIXED uint32[n_slots] in slot order (bucket-major);
         ``u32hash.feistel_unmix`` recovers the raw kmer words."""
         return self.key_lo.reshape(-1), self.key_hi.reshape(-1)
-
-    def block_max_probe(self) -> np.ndarray:
-        """int32[n_blocks]: chain bound per chain block (1 = no chains).
-
-        Chains get extra scheduled kernel tiles only for the blocks that have
-        them, so the bound is per block. Computed from the stored (mixed) keys
-        (each key's distance from its home bucket)."""
-        if getattr(self, "_block_probe", None) is None:
-            block = min(CHAIN_BLOCK, self.n_buckets)
-            # 2-D int32 formulation (the 1-D int64 original cost ~6 s at 33M
-            # slots): per (bucket, lane), distance of the stored key from its
-            # home bucket, wrapped inside the chain block; empty slots 0
-            home = bucket_from_mlo(self.key_lo, self.n_buckets).astype(np.int32)
-            bidx = np.arange(self.n_buckets, dtype=np.int32)[:, None]
-            dist = (bidx - home) & np.int32(block - 1)
-            empty = (self.key_lo == EMPTY) & (self.key_hi == EMPTY)
-            dist[empty] = 0
-            n_blocks = self.n_buckets // block
-            per_block = dist.reshape(n_blocks, block * BUCKET_KEYS).max(axis=1)
-            self._block_probe = (per_block + 1).astype(np.int32)
-        return self._block_probe
-
-    def aug_keys(self, aug: int) -> tuple[np.ndarray, np.ndarray]:
-        """Chain-augmented key arrays: uint32[n_buckets, aug * BUCKET_KEYS]
-        where column group ``h`` holds the keys of bucket ``chain_next(b, h)``.
-
-        The stream kernel compares a query against all ``aug`` chained buckets
-        in ONE tile (exact 62-bit compares make over-covering sound — a key is
-        stored once, so extra compares can only find the true slot), so a
-        block with chain bound R needs ceil(R / aug) scheduled rounds instead
-        of R. The roll wraps inside CHAIN_BLOCK-aligned blocks, exactly like
-        ``chain_next``."""
-        block = min(CHAIN_BLOCK, self.n_buckets)
-        out = []
-        for arr in (self.key_lo, self.key_hi):
-            blocked = arr.reshape(self.n_buckets // block, block, BUCKET_KEYS)
-            halves = [np.roll(blocked, -h, axis=1) for h in range(aug)]
-            out.append(
-                np.concatenate(halves, axis=2).reshape(
-                    self.n_buckets, aug * BUCKET_KEYS
-                )
-            )
-        return out[0], out[1]
 
 
 def _next_pow2(x: int) -> int:

@@ -3,9 +3,9 @@
 The reference parallelizes its whole pipeline with a 16-process pool fed by
 POSIX shared memory (``kmer_mapper/command_line_interface.py:124-130``,
 ``-t/--n-threads``). Here device compute replaces the pool's mapping work,
-but host framing+packing is still one core's worth (~605 Mbases/s with the
-native loader) — enough to feed roughly one v5e chip. Multi-chip runs need
-the host side to scale, so this module gives ``-t`` its production meaning:
+but host framing+packing is still one core's worth by default, and a fast
+device (or several) can outrun one framing core, so this module gives ``-t``
+its production meaning:
 
 * An uncompressed FASTA/FASTQ file is split into ``n_workers`` byte regions,
   each region starting exactly at a record boundary (``split_regions``).

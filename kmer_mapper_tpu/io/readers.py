@@ -1,6 +1,6 @@
 """Host-side chunked FASTA/FASTQ readers.
 
-TPU-native replacement for the reference's bionumpy reader stack
+Replacement for the reference's bionumpy reader stack
 (``bnp.open(...).read_chunks(min_chunk_size=...)`` at
 ``command_line_interface.py:102-111`` and the tuned ``open_file`` at
 ``util.py:78-101``): raw bytes are read in blocks, records are framed with

@@ -4,14 +4,13 @@ One ``step`` consumes a fixed-shape chunk of framed reads (2-bit packed codes
 + uint16 read lengths) and folds its k-mer hits into the persistent per-slot
 count state, entirely on device:
 
-    packed codes -> unpack -> rolling (lo, hi) hash [-> revcomp hash]
-                 -> window mask (ragged reads) -> probe + count
+    packed codes -> rolling (lo, hi) hash [-> revcomp hash]
+                 -> window mask (ragged reads) -> gather probe + count
 
-Two probe strategies (``MapperConfig.probe``):
-  * ``"stream"`` (default on TPU) — sort queries by bucket and stream the
-    table through a Pallas MXU kernel; no gathers/scatters (ops/stream_probe).
-  * ``"gather"`` — per-round XLA row gathers + scatter-add accumulate
-    (ops/probe); the CPU-fallback and pre-hashed-query path.
+Fixed-length reads (the Illumina case) take one of two equivalent
+formulations: the read_len slice step (``chunk_step`` with
+``MapperConfig.read_len``) over continuous packing, or the word-plane step
+(``plane_chunk_step``) over stride-padded packing, which the pipeline uses.
 
 The table ("weights") and the counts ("optimizer state") are device-resident;
 the count buffer is donated so accumulation is in-place. All shapes are static,
@@ -25,7 +24,6 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import logging
 
 import jax
 import jax.numpy as jnp
@@ -33,9 +31,8 @@ import numpy as np
 from jax import lax
 
 from ..index.kmer_index import TpuKmerIndex
-from ..ops import encode, hashing, probe, stream_probe
-
-logger = logging.getLogger(__name__)
+from ..ops import encode, hashing, probe
+from ..ops.u32hash import feistel_mix
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,57 +43,23 @@ class MapperConfig:
     buf: int = 1 << 21  # chunk capacity in bases; multiple of 16
     max_reads: int = 1 << 15  # max reads per chunk
     revcomp: bool = False  # also count reverse complements (GPU-path -r flag)
-    probe: str = "gather"  # "stream" | "gather"; default_config picks per backend
-    accumulate: str = "scatter"  # gather-probe accumulator (see ops.probe)
-    interpret: bool = False  # run Pallas kernels in interpreter mode (CPU)
-    super_batch: int = 1  # chunks folded into one dispatch (lax.scan): amortizes
-    # per-dispatch runtime latency without growing the per-chunk sort
-    stream_cap: int = 0  # stream-kernel query tile size (0 = DEFAULT_CAP)
-    group: int = 0  # adjacent chain blocks served by one widened one-hot tile
-    # (0 = stream_probe.DEFAULT_GROUP). Measured negative at the default table
-    # density (~1.6K queries/block), but large tables spread the same queries
-    # over more blocks (under-filled tiles), where widening pays. Stream
-    # probe only; mutually exclusive with aug > 1.
-    aug: int = 1  # chain-augmentation width: the device table row for bucket b
-    # also carries buckets b+1..b+aug-1 (wrapped in the chain block), so one
-    # scheduled kernel round covers aug chain positions — most blocks then
-    # need a single pass over their query window instead of one per chain
-    # round (see stream_probe.py / layout.aug_keys). Stream probe only.
-    streams: int = 1  # sorted query streams per kernel schedule (stream
-    # probe): the chunk's queries split into S independently sorted segments
-    # served by one tile schedule — XLA's flat sort is fastest below ~2^24
-    # elements while the kernel's tile count per chunk is ~constant, so big
-    # chunks keep the small-sort rate. The plane path splits its window
-    # combos (plane_hash_mixed); the ragged step splits the query array
-    # (stream_probe.mix_pad_segments); results are bit-identical either way.
+    accumulate: str = "scatter"  # count accumulator (see ops.probe)
+    super_batch: int = 1  # chunks folded into one dispatch (lax.scan)
     read_len: int = 0  # all reads have exactly this length (0 = ragged). With
     # fixed-length reads (the Illumina case) the k-1 invalid windows per read
-    # form a static pattern, so the ~20% dead window slots are sliced away
-    # before the sort instead of being masked through it — no window_mask, no
-    # per-read cumsum. KmerMapper verifies each chunk and falls back to the
-    # ragged step when a chunk does not match.
+    # form a static pattern, so the dead window slots are sliced away (or
+    # never formed, on the plane step) instead of being masked — no
+    # window_mask, no per-read cumsum. KmerMapper verifies each chunk and
+    # falls back to the ragged step when a chunk does not match.
 
     def __post_init__(self):
         assert 1 <= self.k <= 31
         assert self.buf % encode.BASES_PER_WORD == 0
-        assert self.probe in ("stream", "gather")
         assert self.accumulate in probe.ACCUMULATORS
         assert self.super_batch >= 1
-        if self.stream_cap >= 128 and self.stream_cap % 128:
-            raise ValueError("stream_cap must be a multiple of 128 (or < 128)")
-        assert 1 <= self.aug <= 8
-        assert self.aug == 1 or self.probe == "stream"
-        assert self.group >= 0
-        assert self.aug == 1 or self.group in (0, 1), (
-            "chain augmentation requires group == 1"
-        )
         if self.read_len:
             assert self.k <= self.read_len <= self.buf
             assert self.super_batch == 1, "read_len requires super_batch == 1"
-        assert 1 <= self.streams <= 8
-        assert self.streams == 1 or self.probe == "stream", (
-            "streams > 1 requires the stream probe"
-        )
 
     @property
     def packed_words(self) -> int:
@@ -104,12 +67,16 @@ class MapperConfig:
         return self.buf // encode.BASES_PER_WORD + 2
 
 
+def _count(counts, key_lo, key_hi, m_lo, m_hi, valid, config, max_probe):
+    """Probe mixed query words and fold the hits into ``counts``."""
+    bucket, mask = probe.probe_mixed(key_lo, key_hi, m_lo, m_hi, max_probe)
+    return probe.ACCUMULATORS[config.accumulate](counts, bucket, mask, valid)
+
+
 def chunk_step(
-    key_lo: jnp.ndarray,  # probe="stream": uint32[8, n_buckets] PLANE layout
-    # (stream_probe.plane_keys); probe="gather": uint32[n_buckets, 8]
+    key_lo: jnp.ndarray,  # uint32[n_buckets, BUCKET_KEYS]
     key_hi: jnp.ndarray,
-    counts: jnp.ndarray,  # uint32[n_slots] — donated; PLANE order
-    # (stream_probe.slot_to_plane) on both probe paths
+    counts: jnp.ndarray,  # uint32[n_slots] slot order — donated
     packed: jnp.ndarray,  # uint32[packed_words] 2-bit codes
     lengths: jnp.ndarray,  # uint16[max_reads]; padding entries are 0
     n_bases: jnp.ndarray,  # int32 scalar
@@ -117,7 +84,6 @@ def chunk_step(
     config: MapperConfig,
     max_probe: int,
     seed: int,
-    block_probe=None,
 ) -> tuple[jnp.ndarray, jnp.ndarray]:
     """Returns (counts', n_valid_windows uint32)."""
     k, buf = config.k, config.buf
@@ -125,7 +91,6 @@ def chunk_step(
     if config.read_len:
         # fixed-length reads at stride L: valid windows are a static pattern
         # (the first L-k+1 of each read's L positions) — slice them out
-        # instead of sorting masked-off slots (~20% of the array at 151 bp)
         L = config.read_len
         R, W = buf // L, L - k + 1
         n_reads = n_bases // jnp.int32(L)
@@ -140,36 +105,16 @@ def chunk_step(
         starts = jnp.cumsum(lengths) - lengths  # exclusive prefix sum
         valid = hashing.window_mask(starts, n_bases, k, buf)
         n_valid = jnp.sum(valid.astype(jnp.uint32))
-    if config.probe == "stream":
-        # revcomp queries ride the same sort + single table sweep
-        q_lo, q_hi, q_valid = lo, hi, valid
-        if config.revcomp:
-            rlo, rhi = hashing.revcomp_lo_hi(lo, hi, k)
-            q_lo = jnp.concatenate([lo, rlo])
-            q_hi = jnp.concatenate([hi, rhi])
-            q_valid = jnp.concatenate([valid, valid])
-        counts = stream_probe.stream_probe_count(
-            key_lo, key_hi, counts, q_lo, q_hi, q_valid,
-            seed, max_probe,
-            cap=config.stream_cap or stream_probe.DEFAULT_CAP,
-            interpret=config.interpret,
-            block_probe=block_probe,
-            group=config.group,
-            streams=config.streams,
+    counts = _count(
+        counts, key_lo, key_hi, *feistel_mix(lo, hi, seed=seed, xp=jnp), valid,
+        config, max_probe,
+    )
+    if config.revcomp:
+        rlo, rhi = hashing.revcomp_lo_hi(lo, hi, k)
+        counts = _count(
+            counts, key_lo, key_hi, *feistel_mix(rlo, rhi, seed=seed, xp=jnp),
+            valid, config, max_probe,
         )
-    else:
-        accumulate = probe.ACCUMULATORS[config.accumulate]
-
-        gpb = stream_probe.plane_gpb(key_lo.shape[0])
-
-        def probe_and_count(counts, q_lo, q_hi):
-            bucket, mask = probe.probe_hits(key_lo, key_hi, q_lo, q_hi, max_probe, seed)
-            return accumulate(counts, bucket, mask, valid, plane_gpb=gpb)
-
-        counts = probe_and_count(counts, lo, hi)
-        if config.revcomp:
-            rlo, rhi = hashing.revcomp_lo_hi(lo, hi, k)
-            counts = probe_and_count(counts, rlo, rhi)
     return counts, n_valid
 
 
@@ -177,62 +122,57 @@ def plane_chunk_step(
     key_lo: jnp.ndarray,
     key_hi: jnp.ndarray,
     counts: jnp.ndarray,  # donated
-    packed: jnp.ndarray,  # uint32[packed_words], STRIDE-padded reads
+    packed: jnp.ndarray,  # uint32[rows * stride/16], STRIDE-padded reads
     n_reads: jnp.ndarray,  # int32 scalar
     *,
     config: MapperConfig,
     max_probe: int,
     seed: int,
-    block_probe=None,
 ) -> tuple[jnp.ndarray, jnp.ndarray]:
-    """Fixed-read-length fast step over stride-padded packing.
+    """Fixed-read-length step over stride-padded packing.
 
     Replaces ``chunk_step``'s rolling hash + window slice with
-    ``hashing.plane_hash_mixed`` (contiguous word-plane shift/ORs; see its
-    docstring for the measured win) when the chunk was packed with
-    ``pack_for_device(..., read_len=L)``. Returns (counts', n_valid)."""
-    assert config.probe == "stream" and config.read_len
-    cap = config.stream_cap or stream_probe.DEFAULT_CAP
-    seg_bounds = None
-    if config.streams > 1:
-        m_lo, m_hi, seg_bounds = hashing.plane_hash_mixed(
-            packed, config.k, config.read_len, n_reads, seed, pad_to=cap,
-            revcomp=config.revcomp, segments=config.streams,
-        )
-    else:
-        m_lo, m_hi = hashing.plane_hash_mixed(
-            packed, config.k, config.read_len, n_reads, seed, pad_to=cap,
-            revcomp=config.revcomp,
-        )
-    counts = stream_probe.stream_probe_count_mixed(
-        key_lo, key_hi, counts, m_lo, m_hi, max_probe,
-        cap=cap, interpret=config.interpret, block_probe=block_probe,
-        group=config.group, seg_bounds=seg_bounds,
+    ``hashing.plane_hash_mixed`` (contiguous word-plane shift/ORs) when the
+    chunk was packed with ``pack_for_device(..., read_len=L)``. Returns
+    (counts', n_valid)."""
+    assert config.read_len
+    m_lo, m_hi = hashing.plane_hash_mixed(
+        packed, config.k, config.read_len, n_reads, seed, revcomp=config.revcomp
+    )
+    # invalid rows carry the sentinel pattern, which the probe never matches
+    counts = _count(
+        counts, key_lo, key_hi, m_lo, m_hi, jnp.ones(m_lo.shape, bool),
+        config, max_probe,
     )
     W = config.read_len - config.k + 1
-    n_valid = (n_reads * W).astype(jnp.uint32)
-    return counts, n_valid
+    return counts, (n_reads * W).astype(jnp.uint32)
 
 
-def make_plane_step(config: MapperConfig, max_probe: int, seed: int, block_probe=None):
+def hash_step(
+    key_lo, key_hi, counts, q_lo, q_hi, valid, *, config, max_probe, seed
+) -> jnp.ndarray:
+    """Count a batch of pre-hashed raw kmer words (``valid`` masks padding)."""
+    return _count(
+        counts, key_lo, key_hi, *feistel_mix(q_lo, q_hi, seed=seed, xp=jnp),
+        valid, config, max_probe,
+    )
+
+
+def make_plane_step(config: MapperConfig, max_probe: int, seed: int):
     """Compile the stride-packed fixed-read-length step (counts donated)."""
     fn = functools.partial(
-        plane_chunk_step, config=config, max_probe=max_probe, seed=seed,
-        block_probe=block_probe,
+        plane_chunk_step, config=config, max_probe=max_probe, seed=seed
     )
     return jax.jit(fn, donate_argnums=(2,))
 
 
-def make_step(config: MapperConfig, max_probe: int, seed: int, block_probe=None):
+def make_step(config: MapperConfig, max_probe: int, seed: int):
     """Compile the chunk step; count state donated for in-place accumulation.
 
     With ``config.super_batch > 1`` the step takes stacked inputs
     (packed[S, W], lengths[S, R], n_bases[S]) and scans the per-chunk step
     inside one executable, returning per-chunk n_valid[S]."""
-    fn = functools.partial(
-        chunk_step, config=config, max_probe=max_probe, seed=seed,
-        block_probe=block_probe,
-    )
+    fn = functools.partial(chunk_step, config=config, max_probe=max_probe, seed=seed)
     if config.super_batch == 1:
         return jax.jit(fn, donate_argnums=(2,))
 
@@ -247,46 +187,10 @@ def make_step(config: MapperConfig, max_probe: int, seed: int, block_probe=None)
     return jax.jit(scanned, donate_argnums=(2,))
 
 
-def auto_stream_cap(
-    buf: int,
-    n_buckets: int,
-    read_len: int = 0,
-    k: int = 31,
-    valid_frac: float | None = None,
-    streams: int = 1,
-    group: int = 1,
-) -> int:
-    """Stream-kernel tile size fitted to the expected queries per chain
-    block, times 1.40. The plane-layout kernel's CSE-free v5e sweep
-    (scripts/r9_cfg_sweep.py: 64 Mi chunks, 8192 blocks, S=4, per-block
-    mean ~1640) measured 355/378/406/400/391/352 Mkmers/s at caps
-    1792/2048/2304/2560/2816/3072 — a sharp optimum at ~1.40x the mean.
-    (The pre-plane kernel peaked at 1.05x with an 8192-lane S*cap VMEM
-    ceiling; the compact plane layout freed VMEM and moved both. Round-3
-    16 Mi sweep for reference: 272/292/286/254 at 1024/1792/2048/4096.)
-
-    ``buf`` is the query-slot count before invalid-window thinning;
-    ``valid_frac`` overrides the expected valid fraction (1.0 for pre-hashed
-    query batches where every slot is a real query). ``group > 1`` (widened
-    tiles on huge tables) makes each tile serve that many chain blocks, so
-    the cap fits the per-GROUP query mean."""
-    n_blocks = max(1, n_buckets // (128 * max(1, group)))
-    if valid_frac is None:
-        valid_frac = (read_len - k + 1) / read_len if read_len > k else 0.8
-    mean_q = buf * valid_frac / n_blocks
-    cap = int(np.ceil(mean_q * 1.40 / 128.0)) * 128
-    # multi-stream tiles are streams*cap lanes wide and the kernel's VMEM
-    # intermediates scale with that width — bound the TOTAL at 10240 lanes
-    # (12288 still compiles on the plane kernel but is past the measured
-    # falloff; the pre-plane padded kernel OOMed scoped VMEM above 8192)
-    ceiling = max(128, (10240 // streams) // 128 * 128)
-    return max(min(512, ceiling), min(ceiling, cap))
-
-
 def chunk_is_fixed(lengths, n_bases, read_len: int) -> bool:
     """True iff the chunk is exactly n whole reads of ``read_len`` (so the
     fixed-stride window slicing in chunk_step is valid). Shared by the
-    single-chip and sharded mappers' fast-path checks."""
+    single-device and sharded mappers' fast-path checks."""
     nb = int(n_bases)
     if nb % read_len:
         return False
@@ -296,22 +200,9 @@ def chunk_is_fixed(lengths, n_bases, read_len: int) -> bool:
 
 
 def default_config(**kwargs) -> MapperConfig:
-    """MapperConfig with backend-appropriate defaults: the stream kernel runs
-    compiled on TPU and in interpreter mode elsewhere (CPU tests/fallback)."""
-    on_tpu = jax.default_backend() == "tpu"
-    kwargs.setdefault("probe", "stream" if on_tpu else "gather")
-    if kwargs["probe"] == "stream":
-        kwargs.setdefault("interpret", not on_tpu)
-        # aug stays 1: chain augmentation measured NEGATIVE on v5e at every
-        # density (283.7 vs 303.5 Mk/s at the default load's lambda=2.6 —
-        # chains are too rare to repay the wider per-tile compare — and
-        # 240-242 vs 296 on a dense lambda=5.15/max_probe=15 table even
-        # though augmentation is what makes such tables streamable at all).
-        # Use aug>=2 explicitly to stream deep-chain (max_probe > 8) tables.
-        # stream_cap stays 0 here: KmerMapper auto-sizes it per index (the
-        # optimum tracks the mean queries per chain block — see auto_stream_cap)
-    # super_batch deliberately stays 1: measured on v5e, folding chunks into a
-    # lax.scan costs ~15-20% (carry handling) — larger buffers amortize better
+    """MapperConfig with the production defaults, the same on every backend
+    (super_batch stays 1: the scanned multi-chunk dispatch is not measured
+    on the GPU)."""
     return MapperConfig(**kwargs)
 
 
@@ -326,82 +217,18 @@ class KmerMapper:
 
     def __init__(self, index: TpuKmerIndex, config: MapperConfig, device=None):
         self.index = index
-        if config.probe == "stream" and config.aug == 1 and not config.group:
-            # human-scale tables run group=2: per-block windows are so thin
-            # (~400 queries/block at 128 Mi) that round-slack tiles dominate
-            # the schedule, and pairing chain blocks halves them for less
-            # than the taller tile body costs (150M-key drill, 128 Mi S=1:
-            # group=1/2/4 = 158.0/160.7/126.9 Mk/s, r8_scale_drill.py)
-            if index.table.n_buckets >= stream_probe.HUMAN_SCALE_BUCKETS:
-                config = dataclasses.replace(config, group=2)
-        if config.probe == "stream" and config.aug == 1:
-            # with self-contained schedule entries this is 1 through ~400M
-            # buckets; kept so truly extreme tables widen groups to the
-            # smallest feasible power of two instead of failing (the tile
-            # then serves `group` adjacent chain blocks; bit-identical)
-            needed = stream_probe.min_feasible_group(
-                index.table.n_buckets, streams=config.streams
-            )
-            if needed > max(1, config.group):
-                logger.info(
-                    "huge table (%d buckets): widening stream-kernel groups "
-                    "to %d chain blocks so the schedule fits SMEM",
-                    index.table.n_buckets, needed,
-                )
-                config = dataclasses.replace(config, group=needed)
-        if config.probe == "stream" and not config.stream_cap:
-            # with multi-stream tiles the tile width serves ONE stream's
-            # per-block share, so the cap fits buf/streams worth of queries
-            config = dataclasses.replace(
-                config,
-                stream_cap=auto_stream_cap(
-                    config.buf // config.streams, index.table.n_buckets,
-                    config.read_len, config.k, streams=config.streams,
-                    group=max(1, config.group),
-                ),
-            )
         self.config = config
+        table = index.table
         put = functools.partial(jax.device_put, device=device)
-        # device counts are flat PLANE order on both probe paths, blocked by
-        # gpb = group * chain block (zeros are order-agnostic;
-        # slot_counts()/load_state translate at the edges)
-        self._gpb = stream_probe.plane_gpb(
-            index.table.n_buckets,
-            max(1, config.group) if config.probe == "stream" else 1,
-        )
-        if config.probe == "stream":
-            # the stream kernel consumes the PLANE layout ((n, 8) pads 16x
-            # on TPU; see stream_probe.plane_keys) with chain augmentation
-            # folded in; the (n, 8) arrays the gather/membership probes read
-            # are materialized lazily
-            if config.aug > 1:
-                aug_lo, aug_hi = index.table.aug_keys(config.aug)
-            else:
-                aug_lo, aug_hi = index.table.key_lo, index.table.key_hi
-            p_lo, p_hi = stream_probe.plane_keys(
-                aug_lo, aug_hi, group=max(1, config.group)
-            )
-            self.key_lo = put(p_lo)
-            self.key_hi = put(p_hi)
-            self._plain = None
-        else:
-            self.key_lo = put(index.table.key_lo)
-            self.key_hi = put(index.table.key_hi)
-            self._plain = (self.key_lo, self.key_hi)
-        self.counts = put(jnp.zeros(index.table.n_slots, dtype=jnp.uint32))
-        block_probe = (
-            index.table.block_max_probe() if config.probe == "stream" else None
-        )
-        self._step = make_step(
-            config, index.table.max_probe, index.table.seed, block_probe
-        )
+        self.key_lo = put(table.key_lo)
+        self.key_hi = put(table.key_hi)
+        self.counts = put(jnp.zeros(table.n_slots, dtype=jnp.uint32))
+        self._step = make_step(config, table.max_probe, table.seed)
         # stride-packed fast step (pack_for_device(read_len=L) buffers); jit
         # is lazy so this compiles only if strided chunks actually arrive
         self._plane_step = (
-            make_plane_step(
-                config, index.table.max_probe, index.table.seed, block_probe
-            )
-            if config.probe == "stream" and config.read_len
+            make_plane_step(config, table.max_probe, table.seed)
+            if config.read_len
             else None
         )
         self._ragged_step = None  # lazy twin for chunks that break read_len
@@ -440,14 +267,12 @@ class KmerMapper:
         ``strided=True`` marks a buffer packed by ``pack_for_device(...,
         read_len=L)`` with every read padded to ``hashing.read_stride(L)``
         bases (all reads exactly L long, ``n_bases`` = L * n_reads): it takes
-        the word-plane fast step. Continuous buffers (default) take the
-        interleaved-hash step as before."""
+        the word-plane step. Continuous buffers (default) take the
+        rolling-hash step."""
         self.n_invalid_bases += n_invalid
         if strided:
-            assert self._plane_step is not None, (
-                "strided chunks require probe='stream' and config.read_len"
-            )
-            assert self.config.super_batch == 1
+            if self._plane_step is None:
+                raise ValueError("strided chunks require config.read_len")
             n_reads = n_bases // self.config.read_len
             self.counts, n_valid = self._plane_step(
                 self.key_lo,
@@ -464,17 +289,9 @@ class KmerMapper:
                 # a chunk with off-length reads (mixed-length file, split long
                 # reads, ...) takes the ragged step; results are identical
                 if self._ragged_step is None:
-                    # streams carries over: the ragged step segments the
-                    # query array itself (stream_probe.mix_pad_segments)
                     cfg = dataclasses.replace(self.config, read_len=0)
-                    self._ragged_step = make_step(
-                        cfg,
-                        self.index.table.max_probe,
-                        self.index.table.seed,
-                        self.index.table.block_max_probe()
-                        if cfg.probe == "stream"
-                        else None,
-                    )
+                    table = self.index.table
+                    self._ragged_step = make_step(cfg, table.max_probe, table.seed)
                 step = self._ragged_step
             self.counts, n_valid = step(
                 self.key_lo,
@@ -518,87 +335,45 @@ class KmerMapper:
     def n_kmers_mapped(self) -> int:
         self.flush()
         if self._stats:
-            # one stacked transfer (per-scalar fetches cost an RTT each)
+            # one stacked transfer instead of a fetch per scalar
             fetched = jax.device_get(jnp.stack(self._stats))
             self._total_kmers += int(np.asarray(fetched, dtype=np.uint64).sum())
             self._stats = []
         return self._total_kmers
 
-    # below this, the sort+stream path's fixed costs beat the gather probe
-    STREAM_HASH_MIN = 1 << 17
-
     def map_hashes(self, kmers: np.ndarray) -> None:
         """Count pre-computed uint64 kmer hashes (library API parity with
         ``map_kmers_to_graph_index`` / ``counter.count``).
 
-        Large batches on TPU ride the sort+stream kernel (the gather probe
-        tops out ~15 Mkmers/s vs >100 for the stream path); lengths are padded
-        to powers of two so repeated calls reuse a few compiled steps."""
+        Lengths are padded to powers of two so repeated calls reuse a few
+        compiled steps."""
         from ..ops.u32hash import split_u64
 
         kmers = np.asarray(kmers, dtype=np.uint64)
         n = len(kmers)
-        lo, hi = split_u64(kmers)
-        table = self.index.table
-        # compiled stream kernel on TPU; interpret-mode configs (CPU tests)
-        # can exercise the same branch. Gather-mode mappers keep the gather
-        # probe (their key arrays are in the row layout, not the kernel's
-        # plane layout).
-        stream_ok = self.config.probe == "stream" and (
-            jax.default_backend() == "tpu" or self.config.interpret
-        )
-        if n >= self.STREAM_HASH_MIN and stream_ok:
-            npad = 1 << max(0, (n - 1)).bit_length()
-            valid = np.zeros(npad, dtype=bool)
-            valid[:n] = True
-            step = self._hash_steps.get(npad)
-            if step is None:
-                block_probe = self.index.table.block_max_probe()
-                # batches past the XLA sort cliff (~2^24 elements) sort as
-                # ~16Mi segments served by multi-stream kernel tiles, like
-                # the chunk paths (see MapperConfig.streams)
-                streams = max(1, min(8, npad >> 24))
-
-                def run(key_lo, key_hi, counts, q_lo, q_hi, q_valid):
-                    return stream_probe.stream_probe_count(
-                        key_lo, key_hi, counts, q_lo, q_hi, q_valid,
-                        table.seed, table.max_probe, block_probe=block_probe,
-                        cap=auto_stream_cap(
-                            npad // streams, table.n_buckets,
-                            valid_frac=1.0, streams=streams,
-                            group=max(1, self.config.group),
-                        ),
-                        interpret=self.config.interpret,
-                        streams=streams,
-                        group=self.config.group,
-                    )
-
-                step = self._hash_steps[npad] = jax.jit(run, donate_argnums=(2,))
-            self.counts = step(
-                self.key_lo,
-                self.key_hi,
-                self.counts,
-                jnp.asarray(np.pad(lo, (0, npad - n))),
-                jnp.asarray(np.pad(hi, (0, npad - n))),
-                jnp.asarray(valid),
-            )
-            self._stats.append(jnp.uint32(n))
+        if n == 0:
             return
-        plain_lo, plain_hi = self._plain_keys()
-        bucket, mask = probe.probe_hits(
-            plain_lo,
-            plain_hi,
-            jnp.asarray(lo),
-            jnp.asarray(hi),
-            table.max_probe,
-            table.seed,
+        lo, hi = split_u64(kmers)
+        npad = 1 << (n - 1).bit_length()
+        step = self._hash_steps.get(npad)
+        if step is None:
+            table = self.index.table
+            step = self._hash_steps[npad] = jax.jit(
+                functools.partial(
+                    hash_step, config=self.config, max_probe=table.max_probe,
+                    seed=table.seed,
+                ),
+                donate_argnums=(2,),
+            )
+        self.counts = step(
+            self.key_lo,
+            self.key_hi,
+            self.counts,
+            jnp.asarray(np.pad(lo, (0, npad - n))),
+            jnp.asarray(np.pad(hi, (0, npad - n))),
+            jnp.asarray(np.arange(npad) < n),
         )
-        acc = probe.ACCUMULATORS[self.config.accumulate]
-        self.counts = acc(
-            self.counts, bucket, mask, jnp.ones(len(lo), dtype=bool),
-            plane_gpb=self._gpb,
-        )
-        self._stats.append(jnp.uint32(len(lo)))
+        self._stats.append(jnp.uint32(n))
 
     def in_index(self, kmers: np.ndarray) -> np.ndarray:
         """Membership per uint64 kmer hash, uint8[n] (no frequency filter) —
@@ -608,26 +383,15 @@ class KmerMapper:
 
         lo, hi = split_u64(np.asarray(kmers, dtype=np.uint64))
         table = self.index.table
-        plain_lo, plain_hi = self._plain_keys()
         slots = probe.probe_slots(
-            plain_lo,
-            plain_hi,
+            self.key_lo,
+            self.key_hi,
             jnp.asarray(lo),
             jnp.asarray(hi),
             table.max_probe,
             table.seed,
         )
         return np.asarray(jax.device_get(slots >= 0)).astype(np.uint8)
-
-    def _plain_keys(self):
-        """Un-augmented key arrays for the gather/membership probes (the step
-        arrays may be chain-augmented, which the gather probe does not read)."""
-        if self._plain is None:
-            self._plain = (
-                jax.device_put(self.index.table.key_lo, device=self._device),
-                jax.device_put(self.index.table.key_hi, device=self._device),
-            )
-        return self._plain
 
     def save_state(self, path) -> None:
         """Checkpoint the accumulated counts + totals (resume long runs)."""
@@ -640,12 +404,8 @@ class KmerMapper:
 
     def load_state(self, path) -> None:
         with np.load(path, allow_pickle=False) as data:
-            # checkpoints store the external slot order; the device buffer
-            # lives in plane order (see __init__)
             self.counts = jax.device_put(
-                stream_probe.slot_to_plane(
-                    data["counts"], self.index.table.n_buckets, self._gpb
-                )
+                data["counts"].astype(np.uint32), device=self._device
             )
             self._stats = []
             self._pending = []
@@ -654,11 +414,7 @@ class KmerMapper:
 
     def slot_counts(self) -> np.ndarray:
         self.flush()
-        return stream_probe.plane_to_slot(
-            np.asarray(jax.device_get(self.counts)),
-            self.index.table.n_buckets,
-            self._gpb,
-        )
+        return np.asarray(jax.device_get(self.counts))
 
     def node_counts(self, max_frequency: int = 1000) -> np.ndarray:
         """Final per-node hit counts, uint32[max_node_id + 1]."""

@@ -1,6 +1,6 @@
 // Native host-side data loader: FASTA/FASTQ record framing + 2-bit packing.
 //
-// TPU-native equivalent of the reference's native IO stack (ISA-L igzip +
+// Equivalent of the reference's native IO stack (ISA-L igzip +
 // bionumpy's vectorized record framing, kmer_mapper/util.py:78-101): a single
 // pass over decompressed bytes frames complete records, encodes ACGTN (N->A,
 // matching the reference's N substitution at command_line_interface.py:40-41),

@@ -1,13 +1,13 @@
-"""Device ops. ``probe``/``stream_probe`` are imported lazily by their users
+"""Device ops. ``probe`` is imported lazily by its users
 (they depend on ``index.layout``, which itself uses ``ops.u32hash`` — eager
 imports here would cycle)."""
 from . import encode, hashing, u32hash
 
-__all__ = ["encode", "hashing", "u32hash", "probe", "stream_probe"]
+__all__ = ["encode", "hashing", "u32hash", "probe"]
 
 
 def __getattr__(name):
-    if name in ("probe", "stream_probe"):
+    if name == "probe":
         import importlib
 
         return importlib.import_module(f".{name}", __name__)

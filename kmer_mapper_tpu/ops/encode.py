@@ -6,9 +6,8 @@ reference's N->A substitution (``command_line_interface.py:40-41``); other
 invalid bytes are counted (the reference would raise).
 
 The host packs 16 bases per uint32 word before transfer — 4x less
-host->device traffic than raw ASCII, which matters both over PCIe and
-(especially) over tunneled links. The device unpacks with one vectorized
-shift/mask pass that XLA fuses into the rolling hash.
+host->device traffic than raw ASCII over PCIe. The device unpacks with one
+vectorized shift/mask pass that XLA fuses into the rolling hash.
 """
 from __future__ import annotations
 

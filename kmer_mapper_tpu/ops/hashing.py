@@ -1,14 +1,15 @@
 """Device-side rolling k-mer hashing and ragged window masking.
 
-TPU has no native 64-bit integers, so each k-mer hash (up to 62 bits for
-k<=31) is carried as a (lo, hi) uint32 word pair. The hash convention is the
+Each k-mer hash (up to 62 bits for k<=31) is carried as a (lo, hi) uint32
+word pair, so device code needs no 64-bit integers (JAX's default 32-bit
+mode). The hash convention is the
 reference's (first base least-significant; see ``oracle.kmer_hashes``):
 
     lo |= code[t+m] << 2m          for m < 16
     hi |= code[t+m] << (2m - 32)   for m >= 16
 
 The k-term accumulation is expressed as k static shifted-slice ORs over the
-whole chunk — fully vectorized VPU work that XLA fuses with the encode gather,
+whole chunk — fully vectorized elementwise work that XLA fuses with the encode gather,
 replacing both bionumpy's ``get_kmers`` rolling window (``util.py:71-75``) and
 the cupy variant of the GPU path.
 
@@ -46,8 +47,8 @@ def rolling_kmer_hash_packed(
     The packed buffer is one continuous bit stream (base i occupies bits
     [2i, 2i+2) of word i//16), so window t's hash is just bits [2t, 2t+2k) —
     two word reads and shifts per window instead of k shifted-slice ORs over
-    unpacked codes (~40x less VPU work at k=31; measured 13.8 ms -> ~2 ms per
-    16 Mi windows). Vectorized as 16 alignment phases over the word array.
+    unpacked codes (~40x fewer operations at k=31). Vectorized as 16
+    alignment phases over the word array.
 
     packed: uint32[w] (w >= 3); returns (lo, hi) uint32[(w-2)*16], entry t the
     hash of window [t, t+k). Matches ``rolling_kmer_hash`` bit-exactly."""
@@ -72,6 +73,10 @@ def rolling_kmer_hash_packed(
     return lo, hi
 
 
+#: mixed-word pattern of an invalid query slot: the table's empty-slot sentinel
+INVALID_WORD = 0xFFFFFFFF
+
+
 def read_stride(read_len: int) -> int:
     """Packed stride (bases) for fixed-length reads: the next multiple of 16,
     so each read starts word-aligned and owns ``read_stride // 16`` whole
@@ -85,37 +90,25 @@ def plane_hash_mixed(
     read_len: int,
     n_reads: jnp.ndarray,  # int32 scalar: rows beyond it become invalid
     seed: int,
-    pad_to: int,
     revcomp: bool = False,
-    segments: int = 1,
 ):
-    """Sort-ready mixed hashes from stride-padded fixed-length-read packing.
+    """Mixed window hashes from stride-padded fixed-length-read packing.
 
-    The fast-path replacement for ``rolling_kmer_hash_packed`` + the
+    The fixed-read-length alternative to ``rolling_kmer_hash_packed`` + the
     ``(R, L)[:, :W]`` window slice + ``feistel_mix``: with each read padded to
     ``read_stride(read_len)`` bases at packing time, every valid window
     s = 16*j + p of a read lives entirely in that read's own words j..j+2
     (2*s + 2*k <= 2*read_len <= 2*stride), so the W = read_len-k+1 valid
     windows are W static (p, j) combos, each a shift/OR over contiguous
-    word-plane columns of the (stride/16, R) transpose. No 16-phase
-    interleave, no lane-misaligned slice: measured 0.83 ms vs 4.7 ms per
-    16 Mi chunk on v5e (scripts/r4_plane_hash.py; the slice relayout alone
-    was ~3.9 ms, r3_s_dissect.py).
+    word-plane columns of the (stride/16, R) transpose — no 16-phase
+    interleave and no window slice.
 
-    Output order is a fixed permutation of window order; the stream path's
-    sort erases it. Rows >= ``n_reads`` and the ``pad_to`` tail become the
-    all-ones invalid pattern (sorts last; kernel masks). With ``revcomp``,
-    the reverse-complement hash of every window is appended (same single
-    table sweep as the interleaved path).
-
-    Returns UNSORTED pre-mixed, pre-padded (m_lo, m_hi) ready for
-    ``stream_probe.stream_probe_count_mixed``. With ``segments > 1`` the
-    window combos are split into S groups, each independently tail-padded,
-    and the return value gains static ``seg_bounds = ((start, length), ...)``
-    — the multi-stream-tile layout (see ``stream_probe_count_mixed``: XLA's
-    sort is fastest below ~2^24 elements, so big chunks sort as S segments).
-    """
-    from .stream_probe import INVALID_WORD
+    Returns (m_lo, m_hi) uint32[n_combos * R], already through
+    ``feistel_mix`` for ``ops.probe.probe_mixed``. Output order is a fixed
+    permutation of window order (counts do not depend on it). Rows >=
+    ``n_reads`` become the all-ones sentinel pattern, which the probe treats
+    as no query. With ``revcomp``, the reverse-complement hash of every
+    window follows it."""
     from .u32hash import feistel_mix
 
     assert 1 <= k <= 31 and read_len >= k
@@ -156,52 +149,8 @@ def plane_hash_mixed(
             emit(lo, hi)
             if revcomp:
                 emit(*revcomp_lo_hi(lo, hi, k))
-    n_combos = (read_len - k + 1) * (2 if revcomp else 1)
-    assert len(mlos) == n_combos
-    assert 1 <= segments <= min(8, n_combos)
-
-    def tail(n):
-        pad = (-n) % pad_to + 2 * pad_to
-        return jnp.full(pad, inv, jnp.uint32)
-
-    if segments == 1:
-        m_lo = jnp.concatenate(mlos + [tail(n_combos * R)])
-        m_hi = jnp.concatenate(mhis + [tail(n_combos * R)])
-        return m_lo, m_hi
-    lo_parts, hi_parts, bounds = [], [], []
-    pos = 0
-    for s in range(segments):
-        a = n_combos * s // segments
-        b = n_combos * (s + 1) // segments
-        t = tail((b - a) * R)
-        lo_parts += mlos[a:b] + [t]
-        hi_parts += mhis[a:b] + [t]
-        length = (b - a) * R + t.shape[0]
-        bounds.append((pos, length))
-        pos += length
-    return jnp.concatenate(lo_parts), jnp.concatenate(hi_parts), tuple(bounds)
-
-
-def select_windows_mxu(x: jnp.ndarray, R: int, L: int, W: int) -> jnp.ndarray:
-    """uint32[R*L] -> uint32[R*W]: keep the first W of every L entries.
-
-    NEGATIVE RESULT, kept for the record: replacing the XLA lane-slice
-    ``x.reshape(R, L)[:, :W]`` with this byte-plane matmul against a constant
-    (L, W) selector measured 287 vs 303 Mkmers/s composed on v5e — the 8
-    byte-plane extractions and recombination cost more than the relayout they
-    replace. chunk_step uses the plain slice. (Exactness would hold: selector
-    entries are 0/1 and byte planes < 256, both bf16-exact, f32 sums < 2^24.)"""
-    sel = jnp.zeros((L, W), jnp.float32).at[jnp.arange(W), jnp.arange(W)].set(1.0)
-    x2 = x.reshape(R, L)
-    word = None
-    for shift in (0, 8, 16, 24):
-        plane = ((x2 >> jnp.uint32(shift)) & jnp.uint32(0xFF)).astype(
-            jnp.int32
-        ).astype(jnp.float32)
-        out = jnp.dot(plane, sel, preferred_element_type=jnp.float32)
-        part = out.astype(jnp.int32).astype(jnp.uint32) << jnp.uint32(shift)
-        word = part if word is None else word | part
-    return word.reshape(R * W)
+    assert len(mlos) == (read_len - k + 1) * (2 if revcomp else 1)
+    return jnp.concatenate(mlos), jnp.concatenate(mhis)
 
 
 def _reverse_2bit_fields_u32(x: jnp.ndarray) -> jnp.ndarray:

@@ -1,17 +1,16 @@
 """Device-side gather probe and count accumulation (XLA path).
 
-TPU-native equivalent of the reference's hot kernels (Cython bucket scan,
-``kmer_mapper/mapper.pyx:53-69``; CUDA ``cucounter`` atomic counter,
+The accelerator counterpart of the reference's hot kernels (Cython bucket
+scan, ``kmer_mapper/mapper.pyx:53-69``; CUDA ``cucounter`` atomic counter,
 ``kmer_mapper/gpu_counter.py:23-24``), probing the block-chained layout of
-``index/layout.py`` with per-round row gathers. This is the fallback path —
-CPU execution, the sharded step, and pre-hashed queries; the default TPU path
-is the sort+stream MXU kernel in ``ops/stream_probe.py``.
+``index/layout.py`` with per-round row gathers. Every device path — the
+single-device and sharded chunk steps, the fixed-read-length plane step, and
+pre-hashed queries — counts through this module.
 
-Counting: TPU exposes no atomics at the XLA level; instead of cucounter's
-``atomicAdd`` the accumulator is a scatter-add (``scatter`` duplicate-index
-variant, or ``sorted`` sort+RLE+unique-scatter), selected per measured
-throughput. The stream path needs neither — its counts are accumulated inside
-the kernel's VMEM tiles.
+Counting: the accumulator is a scatter-add into the flat slot-order count
+vector (``scatter`` with duplicate indices, which XLA lowers to atomic adds
+on the GPU as cucounter does by hand; or ``sorted``: sort + run-length
+encode + unique-index scatter).
 """
 from __future__ import annotations
 
@@ -28,13 +27,12 @@ def chain_next(b: jnp.ndarray, step: int, n_buckets: int) -> jnp.ndarray:
     return (b & ~jnp.int32(block - 1)) | ((b + step) & jnp.int32(block - 1))
 
 
-def probe_hits(
+def probe_mixed(
     key_lo: jnp.ndarray,  # uint32[n_local_buckets, BUCKET_KEYS]
     key_hi: jnp.ndarray,
-    q_lo: jnp.ndarray,  # uint32[n]
-    q_hi: jnp.ndarray,
+    m_lo: jnp.ndarray,  # uint32[n] query words already through feistel_mix
+    m_hi: jnp.ndarray,
     max_probe: int,
-    seed: int,
     n_buckets_global: int | None = None,
     row_offset=0,
 ) -> tuple[jnp.ndarray, jnp.ndarray]:
@@ -44,22 +42,23 @@ def probe_hits(
     queries owned by another shard). Single-device: the table arrays hold all
     buckets. Sharded: the shard owns buckets [row_offset, row_offset +
     n_local); bucket ids are computed against the global bucket count and
-    out-of-range rows are masked. Chains wrap inside CHAIN_BLOCK-aligned
-    blocks, so with block-aligned shards a chain never crosses shards and no
-    key can be double-counted."""
+    out-of-range rows are masked, so a key is counted only by the shard that
+    stores it.
+
+    A query whose mixed words are the all-ones empty-slot sentinel is no
+    query: it can only "match" empty slots (the build reseeds away real keys
+    that mix to it), so it never hits. The plane step marks its padding rows
+    this way."""
     n_local = key_lo.shape[0]
     if n_buckets_global is None:
         n_buckets_global = n_local
-    m_lo, m_hi = feistel_mix(q_lo, q_hi, seed=seed, xp=jnp)
-    # the table stores mixed words; a query mixing to the EMPTY sentinel can
-    # only "match" empty slots (the build reseeds away real collisions)
     real = ~((m_lo == jnp.uint32(0xFFFFFFFF)) & (m_hi == jnp.uint32(0xFFFFFFFF)))
     shift = bucket_shift(n_buckets_global)
     b0 = (m_lo >> jnp.uint32(shift)).astype(jnp.int32) if shift < 32 else (
         jnp.zeros(m_lo.shape, jnp.int32)
     )
-    bucket = jnp.zeros(q_lo.shape, dtype=jnp.int32)
-    mask = jnp.zeros((q_lo.shape[0], BUCKET_KEYS), dtype=bool)
+    bucket = jnp.zeros(m_lo.shape, dtype=jnp.int32)
+    mask = jnp.zeros((m_lo.shape[0], BUCKET_KEYS), dtype=bool)
     for p in range(max_probe):
         b_g = chain_next(b0, p, n_buckets_global)
         b_l = b_g - row_offset
@@ -73,6 +72,23 @@ def probe_hits(
         bucket = jnp.where(hit, b_safe, bucket)
         mask = mask | m
     return bucket, mask.astype(jnp.uint32)
+
+
+def probe_hits(
+    key_lo: jnp.ndarray,
+    key_hi: jnp.ndarray,
+    q_lo: jnp.ndarray,  # uint32[n] raw kmer words
+    q_hi: jnp.ndarray,
+    max_probe: int,
+    seed: int,
+    n_buckets_global: int | None = None,
+    row_offset=0,
+) -> tuple[jnp.ndarray, jnp.ndarray]:
+    """:func:`probe_mixed` for raw (unmixed) query words."""
+    m_lo, m_hi = feistel_mix(q_lo, q_hi, seed=seed, xp=jnp)
+    return probe_mixed(
+        key_lo, key_hi, m_lo, m_hi, max_probe, n_buckets_global, row_offset
+    )
 
 
 def probe_slots(
@@ -95,35 +111,26 @@ def probe_slots(
 
 
 # --- count accumulation ------------------------------------------------------
-# counts are uint32[n_slots] flat. Default indexing is slot order (slot =
-# bucket * BUCKET_KEYS + lane); ``plane_gpb > 0`` scatters into the
-# group-blocked plane order ((g*K + lane)*gpb + bucket_in_group) that
-# stream-probe mappers keep their device counts in (see
-# stream_probe.plane_keys) — same histogram, different flat address.
+# counts are uint32[n_slots] flat in slot order (slot = bucket * BUCKET_KEYS +
+# lane); misses and invalid queries index past the end and are dropped.
 
 
-def _hit_index(counts, bucket, mask, valid, plane_gpb):
-    n_slots = counts.shape[0]
+def _hit_index(counts, bucket, mask, valid):
     any_hit = mask.any(axis=1) & valid
     lane = jnp.argmax(mask, axis=1).astype(jnp.int32)
-    if plane_gpb:
-        gpb = jnp.int32(min(plane_gpb, n_slots // BUCKET_KEYS))
-        idx = ((bucket // gpb) * BUCKET_KEYS + lane) * gpb + bucket % gpb
-    else:
-        idx = bucket * BUCKET_KEYS + lane
-    return jnp.where(any_hit, idx, n_slots)
+    return jnp.where(any_hit, bucket * BUCKET_KEYS + lane, counts.shape[0])
 
 
-def accumulate_scatter(counts, bucket, mask, valid, plane_gpb: int = 0):
+def accumulate_scatter(counts, bucket, mask, valid):
     """Element scatter-add with duplicate indices."""
-    idx = _hit_index(counts, bucket, mask, valid, plane_gpb)
+    idx = _hit_index(counts, bucket, mask, valid)
     return counts.at[idx].add(jnp.uint32(1), mode="drop")
 
 
-def accumulate_sorted(counts, bucket, mask, valid, plane_gpb: int = 0):
+def accumulate_sorted(counts, bucket, mask, valid):
     """Sort + run-length-encode + unique-index scatter."""
     n_slots = counts.shape[0]
-    idx = _hit_index(counts, bucket, mask, valid, plane_gpb)
+    idx = _hit_index(counts, bucket, mask, valid)
     n = idx.shape[0]
     s = jnp.sort(idx)
     first = jnp.concatenate([jnp.ones(1, dtype=bool), s[1:] != s[:-1]])

@@ -1,23 +1,22 @@
 """32-bit hash mixing shared by the host-side table builder (numpy) and the
 device-side probe (jax.numpy).
 
-TPU has no native 64-bit integers, so the framework represents k-mers as
-(lo, hi) uint32 word pairs everywhere on device. Bucket selection for the
-open-addressing table needs a well-avalanched hash of the 64-bit kmer computed
-from those two words using only 32-bit ops (xor/shift/wraparound-multiply),
-which both numpy and XLA:TPU execute identically. This replaces the
-reference's ``kmer % modulo`` bucket function (``kmer_mapper/mapper.pyx:54``)
-— the modulo was an artifact of the reference's index layout; a power-of-two
-table with a strong mixer avoids 64-bit division entirely on TPU.
+The framework represents k-mers as (lo, hi) uint32 word pairs everywhere on
+device, so device code runs in JAX's default 32-bit mode. Bucket selection
+for the open-addressing table needs a well-avalanched hash of the 64-bit kmer
+computed from those two words using only 32-bit ops
+(xor/shift/wraparound-multiply), which numpy and XLA execute identically.
+This replaces the reference's ``kmer % modulo`` bucket function
+(``kmer_mapper/mapper.pyx:54``) — the modulo was an artifact of the
+reference's index layout; a power-of-two table with a strong mixer avoids
+64-bit division entirely.
 
 The mixer is a **bijective** 64-bit permutation: a 3-round Feistel network
 whose round function is the murmur3 finalizer (fmix32). Bijectivity is what
 lets the table store the MIXED words (m_lo, m_hi) instead of the raw kmer —
 equality of mixed words is equality of kmers, and the bucket is simply the
-high bits of m_lo. The sort that feeds the stream kernel then needs only TWO
-operands (m_lo key + m_hi payload) instead of (bucket, lo, hi) — a measured
-~28% of the sort's cost per dropped operand on v5e (scripts/r3_s_dissect.py).
-``feistel_unmix`` recovers raw kmers from stored table words on the host.
+high bits of m_lo. ``feistel_unmix`` recovers raw kmers from stored table
+words on the host.
 """
 from __future__ import annotations
 
@@ -87,8 +86,7 @@ def mix64(lo, hi, seed: int = 0, xp=np):
 
 def bucket_shift(n_buckets: int) -> int:
     """m_lo >> bucket_shift(n) is the bucket id: buckets are the HIGH bits of
-    the mixed low word, so sorting queries by m_lo groups (and orders) them by
-    bucket with no separate bucket operand."""
+    the mixed low word."""
     assert n_buckets & (n_buckets - 1) == 0, "n_buckets must be a power of two"
     return 32 - (n_buckets - 1).bit_length() if n_buckets > 1 else 32
 

@@ -1,7 +1,7 @@
 """Pure-numpy semantic core: the bit-exact specification of every kernel.
 
 This module is the single source of truth for the framework's semantics. It serves as
-(a) the test oracle every JAX/Pallas kernel is compared against bit-for-bit, and
+(a) the test oracle every JAX device path is compared against bit-for-bit, and
 (b) the CPU fallback execution path.
 
 Semantics are pinned to the reference implementation (ivargr/kmer_mapper):

@@ -2,7 +2,7 @@
 
 The reference's only parallelism is a CPU process pool over input chunks with
 an additive reduce (``additative_shared_array_map_reduce``,
-``command_line_interface.py:124-130``). The TPU-native layout generalizes it:
+``command_line_interface.py:124-130``). The device layout generalizes it:
 
 * **data axis** — chunks of reads are sharded across devices (the process-pool
   analog); each data row accumulates into its own count state, summed once at
@@ -11,7 +11,9 @@ an additive reduce (``additative_shared_array_map_reduce``,
   sharded by contiguous bucket ranges; every index shard probes the full
   query stream of its data row and counts only the keys it owns, so the hot
   loop needs NO collectives at all — communication happens once, at node-count
-  finalization. Collectives ride ICI within the mesh.
+  finalization. Collectives run over NVLink between the GPUs of one host
+  (every card reaches every other at the same rate, so the mesh is a plain
+  reshape of the device list, shaped by the algorithm alone).
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ def make_mesh(
     """Build a (data, index) mesh over the given/available devices.
 
     ``index_parallel`` defaults to 1 (replicated table) — the right choice
-    whenever the table fits a single chip's HBM; raise it for multi-GB indexes.
+    whenever the table fits one device's memory; raise it for multi-GB indexes.
     """
     if devices is None:
         devices = jax.devices()

@@ -1,10 +1,10 @@
 """Multi-host scale-out.
 
 The reference is strictly single-machine (SURVEY §5.8): a POSIX-shm process
-pool. The TPU-native analog for pods: every host runs its own input pipeline
+pool. The multi-host analog: every host runs its own input pipeline
 over a disjoint shard of the reads (k-mer counting is embarrassingly parallel
 over reads), maps on its local devices, and the per-host node-count vectors
-are summed once at the end — one DCN all-reduce worth of traffic, total.
+are summed once at the end — one cross-host all-reduce worth of traffic, total.
 
 Two modes:
 
@@ -31,10 +31,7 @@ def initialize(coordinator_address: str | None = None, **kwargs) -> None:
     try:
         jax.distributed.initialize(coordinator_address=coordinator_address, **kwargs)
     except RuntimeError as exc:  # already initialized: keep the existing runtime
-        msg = str(exc).lower()
-        # jax <=0.4 says "already initialized"; jax 0.9 says "should only be
-        # called once"
-        if "already" not in msg and "called once" not in msg:
+        if "should only be called once" not in str(exc):
             raise
 
 

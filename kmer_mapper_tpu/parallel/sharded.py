@@ -1,18 +1,16 @@
 """Multi-device mapping: shard_map chunk step + GSPMD finalization.
 
-Layout (see ``mesh.py``): reads are data-parallel, the cuckoo table is sharded
-by contiguous bucket ranges over the index axis. Each (data, index) device
-probes its data row's full query stream against its local bucket range and
-counts the keys it owns into a private count shard — the hot path is
-collective-free by construction (the TPU analog of the reference's race-free
+Layout (see ``mesh.py``): reads are data-parallel, the bucket table is
+sharded by contiguous bucket ranges over the index axis. Each (data, index)
+device probes its data row's full query stream against its local bucket range
+and counts the keys it owns into a private count shard — the hot path is
+collective-free by construction (the analog of the reference's race-free
 private ``node_counts`` per worker, SURVEY §5.2). The additive reduce over the
 data axis and the entry->node conversion happen once, at finalization, where
-XLA's partitioner inserts the psum/all-gathers over ICI.
+XLA's partitioner inserts the all-reduce/all-gathers (NCCL over NVLink on a
+multi-GPU host).
 """
 from __future__ import annotations
-
-import dataclasses
-import logging
 
 import jax
 import jax.numpy as jnp
@@ -20,325 +18,108 @@ import numpy as np
 from jax.sharding import Mesh, NamedSharding
 from jax.sharding import PartitionSpec as P
 
-from ..index import layout
 from ..index.kmer_index import TpuKmerIndex
-from ..models.mapper import MapperConfig, auto_stream_cap, chunk_is_fixed
-from ..ops import hashing, probe, stream_probe
+from ..models.mapper import MapperConfig, chunk_is_fixed
+from ..ops import hashing, probe
+from ..ops.u32hash import feistel_mix
 from .mesh import DATA_AXIS, INDEX_AXIS
 
-logger = logging.getLogger(__name__)
+# counts are uint32[D, n_slots] in slot order: the index axis splits the slot
+# range exactly like it splits the bucket range of the key arrays
+_COUNTS = P(DATA_AXIS, INDEX_AXIS)
+_KEYS = P(INDEX_AXIS, None)  # uint32[n_buckets, BUCKET_KEYS]
+_ROW = P(DATA_AXIS, None)  # one array per data row
+_SCALAR = P(DATA_AXIS)  # one scalar per data row
 
 
-def _probe_queries_local(
-    c,
-    key_lo,
-    key_hi,
-    q_lo,
-    q_hi,
-    q_valid,
-    *,
-    config: MapperConfig,
-    n_buckets: int,
-    nb_local: int,
-    max_probe: int,
-    seed: int,
-    chain_block: int,
-    row_offset,
-    bp_local,
-):
-    """One device's probe+count of a flat query array against its local
-    bucket range — the shared core of every sharded step (chunk, plane-
-    fallback ragged, and pre-hashed ``map_hashes`` batches).
-
-    ``c`` is the device's flat PLANE-order count shard; with the stream
-    probe ``key_lo``/``key_hi`` are the (aug*K, nb_local) plane-layout key
-    shards (see ``stream_probe.plane_keys``), with the gather probe the
-    (nb_local, 8) row-gather layout."""
-    if config.probe == "stream":
-        cap = config.stream_cap or stream_probe.DEFAULT_CAP
-        if config.streams > 1:
-            # ragged multi-stream: S independently sorted segments served
-            # by one tile schedule (same layout as the plane twin's
-            # plane_hash_mixed(segments=S))
-            m_lo, m_hi, seg_bounds = stream_probe.mix_pad_segments(
-                q_lo, q_hi, q_valid, seed, cap, config.streams
-            )
-            return stream_probe.stream_probe_count_mixed(
-                key_lo, key_hi, c, m_lo, m_hi, max_probe,
-                cap=cap, interpret=config.interpret,
-                block_probe=bp_local, seg_bounds=seg_bounds,
-                bucket_base=row_offset, chain_block=chain_block,
-                n_buckets_global=n_buckets, group=config.group,
-            )
-        sm_lo, sm_hi = stream_probe.sort_queries(
-            q_lo, q_hi, q_valid, n_buckets, seed, pad_to=cap
-        )
-        off = stream_probe.block_offsets(
-            sm_lo, n_buckets, chain_block, bucket_base=row_offset,
-            n_local=nb_local,
-        )
-        off = jnp.minimum(off, jnp.int32(sm_lo.shape[0] - cap))
-        return stream_probe.stream_count(
-            key_lo,
-            key_hi,
-            c,
-            sm_lo,
-            sm_hi,
-            off,
-            max_probe,
-            cap=cap,
-            interpret=config.interpret,
-            bucket_base=row_offset,
-            chain_block=chain_block,
-            block_probe=bp_local,
-            n_buckets_global=n_buckets,
-            group=config.group,
-            tail_padded=True,
-        )
-    bucket, mask = probe.probe_hits(
-        key_lo,
-        key_hi,
-        q_lo,
-        q_hi,
-        max_probe,
-        seed,
-        n_buckets_global=n_buckets,
-        row_offset=row_offset,
-    )
-    return probe.ACCUMULATORS[config.accumulate](
-        c, bucket, mask, q_valid, plane_gpb=_counts_gpb(config, n_buckets, chain_block, n_buckets // nb_local)
-    )
-
-
-def _key_spec(config: MapperConfig) -> P:
-    """Mesh spec of the key arrays: the stream kernel's plane layout
-    (n_groups, aug*K, gpb) and the gather probe's (n_buckets, 8) row layout
-    both shard bucket ranges on their leading dim."""
-    return (
-        P(INDEX_AXIS, None, None)
-        if config.probe == "stream"
-        else P(INDEX_AXIS, None)
-    )
-
-
-def _counts_gpb(
-    config: MapperConfig, n_buckets: int, chain_block: int, n_index: int = 1
-) -> int:
-    """gpb of the plane-order count layout: group-widened on the stream
-    path (with plan_schedule's clamping — see stream_probe.plane_gpb), the
-    plain chain block on the gather path. The leading group dim is what the
-    index axis shards, so gpb must divide the per-shard bucket range: the
-    stream path enforces chain-block-aligned shards already; the gather path
-    (whose count blocking is arbitrary) shrinks gpb to fit sub-block shards."""
-    nb_local = max(1, n_buckets // max(1, n_index))
-    if config.probe == "stream":
-        group = max(1, config.group)
-        return stream_probe.plane_gpb(n_buckets, group, chain_block)
-    return min(chain_block, nb_local)
-
-
-def _local_block_probe(block_probe, x, nb_local: int, chain_block: int):
-    """This index shard's slice of the per-block chain bounds (or None)."""
-    if block_probe is None:
-        return None
-    n_blocks_local = nb_local // chain_block
-    return jax.lax.dynamic_slice(
-        jnp.asarray(block_probe, dtype=jnp.int32),
-        (x * n_blocks_local,),
-        (n_blocks_local,),
-    )
-
-
-def make_sharded_step(
-    mesh: Mesh,
-    config: MapperConfig,
-    n_buckets: int,
-    max_probe: int,
-    seed: int,
-    block_probe: "np.ndarray | None" = None,
-):
-    """Compile the multi-device chunk step.
-
-    Global shapes (D = data axis size, K = layout.BUCKET_KEYS, G = bucket
-    groups = n_buckets / gpb — see stream_probe.plane_keys):
-      counts  uint32[D, G, K, gpb]       sharded (data, index, None, None)
-              -- donated (plane order: a shard's local block flattens to its
-              plane-order count vector)
-      key_lo  uint32[G, aug*K, gpb]      sharded (index, None, None) [stream]
-              uint32[n_buckets, 8]       sharded (index, None)       [gather]
-      key_hi  like key_lo
-      packed  uint32[D, packed_words]    sharded (data, None)
-      lengths uint16[D, max_reads]       sharded (data, None)
-      n_bases int32[D]                   sharded (data,)
-    Returns (counts', n_valid uint32[D]).
-
-    Shard boundaries are CHAIN_BLOCK-aligned (power-of-two bucket counts over
-    power-of-two index axes), so collision chains never cross shards.
-    """
+def _local_counter(mesh: Mesh, config: MapperConfig, n_buckets: int, max_probe: int):
+    """Per-device probe + count of mixed query words against the device's
+    bucket range (the shared core of every sharded step)."""
     n_index = mesh.shape[INDEX_AXIS]
-    assert n_buckets % n_index == 0
+    if n_buckets % n_index:
+        raise ValueError(f"{n_buckets} buckets do not split over {n_index} index shards")
     nb_local = n_buckets // n_index
-    chain_block = min(layout.CHAIN_BLOCK, n_buckets)
-    if config.probe == "stream" and nb_local % chain_block != 0:
-        raise ValueError(
-            f"stream probe needs chain-block-aligned shards "
-            f"(nb_local={nb_local}, chain_block={chain_block}); use probe='gather'"
-        )
-    k, buf = config.k, config.buf
+    accumulate = probe.ACCUMULATORS[config.accumulate]
 
-    def local_step(counts, key_lo, key_hi, packed, lengths, n_bases):
-        x = jax.lax.axis_index(INDEX_AXIS)
-        row_offset = (x * nb_local).astype(jnp.int32)
-        lo, hi = hashing.rolling_kmer_hash_packed(packed[0], k)
-        if config.read_len:
-            # fixed-length reads: slice the static valid-window pattern (same
-            # fast path as the single-chip chunk_step)
-            L = config.read_len
-            R, W = buf // L, L - k + 1
-            n_reads = n_bases[0] // jnp.int32(L)
-            lo = lo[: R * L].reshape(R, L)[:, :W].reshape(R * W)
-            hi = hi[: R * L].reshape(R, L)[:, :W].reshape(R * W)
-            valid = (
-                jax.lax.broadcasted_iota(jnp.int32, (R, W), 0) < n_reads
-            ).reshape(R * W)
-            n_valid = (n_reads * W).astype(jnp.uint32)
-        else:
-            lengths_i = lengths[0].astype(jnp.int32)
-            starts = jnp.cumsum(lengths_i) - lengths_i
-            valid = hashing.window_mask(starts, n_bases[0], k, buf)
-            n_valid = jnp.sum(valid.astype(jnp.uint32))
-        c = counts[0].reshape(-1)  # (K, nb_local) -> flat plane order
-        bp_local = (
-            _local_block_probe(block_probe, x, nb_local, chain_block)
-            if config.probe == "stream"
-            else None
+    def count(c, key_lo, key_hi, m_lo, m_hi, valid):
+        row_offset = (jax.lax.axis_index(INDEX_AXIS) * nb_local).astype(jnp.int32)
+        bucket, mask = probe.probe_mixed(
+            key_lo, key_hi, m_lo, m_hi, max_probe,
+            n_buckets_global=n_buckets, row_offset=row_offset,
         )
-        kw = dict(
-            config=config, n_buckets=n_buckets, nb_local=nb_local,
-            max_probe=max_probe, seed=seed, chain_block=chain_block,
-            row_offset=row_offset, bp_local=bp_local,
-        )
+        return accumulate(c, bucket, mask, valid)
 
-        if config.probe == "stream":
-            q_lo, q_hi, q_valid = lo, hi, valid
-            if config.revcomp:
-                rlo, rhi = hashing.revcomp_lo_hi(lo, hi, k)
-                q_lo = jnp.concatenate([lo, rlo])
-                q_hi = jnp.concatenate([hi, rhi])
-                q_valid = jnp.concatenate([valid, valid])
-            c = _probe_queries_local(c, key_lo, key_hi, q_lo, q_hi, q_valid, **kw)
-        else:
-            c = _probe_queries_local(c, key_lo, key_hi, lo, hi, valid, **kw)
-            if config.revcomp:
-                rlo, rhi = hashing.revcomp_lo_hi(lo, hi, k)
-                c = _probe_queries_local(c, key_lo, key_hi, rlo, rhi, valid, **kw)
-        gpb = _counts_gpb(config, n_buckets, chain_block, n_index)
-        return c.reshape(-1, layout.BUCKET_KEYS, gpb)[None], n_valid[None]
+    return count
 
+
+def _shard_step(mesh: Mesh, local_step, *row_specs):
+    """shard_map + jit a local step over (counts, key_lo, key_hi, *rows),
+    where ``rows`` are per-data-row inputs. Counts are donated."""
     step = jax.shard_map(
         local_step,
         mesh=mesh,
-        in_specs=(
-            P(DATA_AXIS, INDEX_AXIS, None, None),
-            _key_spec(config),
-            _key_spec(config),
-            P(DATA_AXIS, None),
-            P(DATA_AXIS, None),
-            P(DATA_AXIS),
-        ),
-        out_specs=(P(DATA_AXIS, INDEX_AXIS, None, None), P(DATA_AXIS)),
-        check_vma=False,  # pallas_call outputs carry no vma annotation
+        in_specs=(_COUNTS, _KEYS, _KEYS, *row_specs),
+        out_specs=(_COUNTS, _SCALAR),
     )
     return jax.jit(step, donate_argnums=(0,))
 
 
+def make_sharded_step(
+    mesh: Mesh, config: MapperConfig, n_buckets: int, max_probe: int, seed: int
+):
+    """Compile the multi-device chunk step over continuous (ragged) packing.
+
+    Global shapes (D = data axis size):
+      counts  uint32[D, n_slots]          sharded (data, index) — donated
+      key_lo  uint32[n_buckets, 8]        sharded (index, None)
+      key_hi  like key_lo
+      packed  uint32[D, packed_words]     sharded (data, None)
+      lengths uint16[D, max_reads]        sharded (data, None)
+      n_bases int32[D]                    sharded (data,)
+    Returns (counts', n_valid uint32[D]).
+    """
+    k, buf = config.k, config.buf
+    count = _local_counter(mesh, config, n_buckets, max_probe)
+
+    def local_step(counts, key_lo, key_hi, packed, lengths, n_bases):
+        lo, hi = hashing.rolling_kmer_hash_packed(packed[0], k)
+        lengths_i = lengths[0].astype(jnp.int32)
+        starts = jnp.cumsum(lengths_i) - lengths_i
+        valid = hashing.window_mask(starts, n_bases[0], k, buf)
+        c = count(counts[0], key_lo, key_hi, *feistel_mix(lo, hi, seed=seed, xp=jnp), valid)
+        if config.revcomp:
+            rlo, rhi = hashing.revcomp_lo_hi(lo, hi, k)
+            c = count(c, key_lo, key_hi, *feistel_mix(rlo, rhi, seed=seed, xp=jnp), valid)
+        return c[None], jnp.sum(valid.astype(jnp.uint32))[None]
+
+    return _shard_step(mesh, local_step, _ROW, _ROW, _SCALAR)
+
+
 def make_sharded_plane_step(
-    mesh: Mesh,
-    config: MapperConfig,
-    n_buckets: int,
-    max_probe: int,
-    seed: int,
-    block_probe: "np.ndarray | None" = None,
+    mesh: Mesh, config: MapperConfig, n_buckets: int, max_probe: int, seed: int
 ):
     """Multi-device twin of ``models.mapper.plane_chunk_step``: word-plane
-    hashing over stride-padded fixed-read-length packing (see
-    ``hashing.plane_hash_mixed`` for the measured win over the slicing path).
+    hashing over stride-padded fixed-read-length packing.
 
     Global shapes: packed uint32[D, rows*npr] sharded (data, None), n_reads
     int32[D] sharded (data,); counts/key shards as in ``make_sharded_step``.
     """
-    assert config.probe == "stream" and config.read_len
-    n_index = mesh.shape[INDEX_AXIS]
-    assert n_buckets % n_index == 0
-    nb_local = n_buckets // n_index
-    chain_block = min(layout.CHAIN_BLOCK, n_buckets)
-    if nb_local % chain_block != 0:
-        raise ValueError(
-            f"stream probe needs chain-block-aligned shards "
-            f"(nb_local={nb_local}, chain_block={chain_block}); use probe='gather'"
-        )
+    assert config.read_len
     k, L = config.k, config.read_len
-    cap = config.stream_cap or stream_probe.DEFAULT_CAP
-    W = L - k + 1
+    count = _local_counter(mesh, config, n_buckets, max_probe)
 
     def local_step(counts, key_lo, key_hi, packed, n_reads):
-        x = jax.lax.axis_index(INDEX_AXIS)
-        row_offset = (x * nb_local).astype(jnp.int32)
-        bp_local = _local_block_probe(block_probe, x, nb_local, chain_block)
-        seg_bounds = None
-        if config.streams > 1:
-            m_lo, m_hi, seg_bounds = hashing.plane_hash_mixed(
-                packed[0], k, L, n_reads[0], seed, pad_to=cap,
-                revcomp=config.revcomp, segments=config.streams,
-            )
-        else:
-            m_lo, m_hi = hashing.plane_hash_mixed(
-                packed[0], k, L, n_reads[0], seed, pad_to=cap,
-                revcomp=config.revcomp,
-            )
-        c = stream_probe.stream_probe_count_mixed(
-            key_lo,
-            key_hi,
-            counts[0].reshape(-1),
-            m_lo,
-            m_hi,
-            max_probe,
-            cap=cap,
-            interpret=config.interpret,
-            block_probe=bp_local,
-            seg_bounds=seg_bounds,
-            bucket_base=row_offset,
-            chain_block=chain_block,
-            n_buckets_global=n_buckets,
-            group=config.group,
+        m_lo, m_hi = hashing.plane_hash_mixed(
+            packed[0], k, L, n_reads[0], seed, revcomp=config.revcomp
         )
-        n_valid = (n_reads[0] * W).astype(jnp.uint32)
-        gpb = _counts_gpb(config, n_buckets, chain_block, n_index)
-        return c.reshape(-1, layout.BUCKET_KEYS, gpb)[None], n_valid[None]
+        c = count(counts[0], key_lo, key_hi, m_lo, m_hi, jnp.ones(m_lo.shape, bool))
+        return c[None], (n_reads[0] * (L - k + 1)).astype(jnp.uint32)[None]
 
-    step = jax.shard_map(
-        local_step,
-        mesh=mesh,
-        in_specs=(
-            P(DATA_AXIS, INDEX_AXIS, None, None),
-            _key_spec(config),
-            _key_spec(config),
-            P(DATA_AXIS, None),
-            P(DATA_AXIS),
-        ),
-        out_specs=(P(DATA_AXIS, INDEX_AXIS, None, None), P(DATA_AXIS)),
-        check_vma=False,  # pallas_call outputs carry no vma annotation
-    )
-    return jax.jit(step, donate_argnums=(0,))
+    return _shard_step(mesh, local_step, _ROW, _SCALAR)
 
 
 def make_sharded_hash_step(
-    mesh: Mesh,
-    config: MapperConfig,
-    n_buckets: int,
-    max_probe: int,
-    seed: int,
-    block_probe: "np.ndarray | None" = None,
+    mesh: Mesh, config: MapperConfig, n_buckets: int, max_probe: int, seed: int
 ):
     """Multi-device twin of the pre-hashed library surface
     (``KmerMapper.map_hashes`` / ``mapper.pyx:19``'s call shape): query word
@@ -347,49 +128,14 @@ def make_sharded_hash_step(
 
     Global shapes: q_lo/q_hi uint32[D, n] + valid bool[D, n] sharded
     (data, None); counts/key shards as in ``make_sharded_step``."""
-    n_index = mesh.shape[INDEX_AXIS]
-    assert n_buckets % n_index == 0
-    nb_local = n_buckets // n_index
-    chain_block = min(layout.CHAIN_BLOCK, n_buckets)
-    if config.probe == "stream" and nb_local % chain_block != 0:
-        raise ValueError(
-            f"stream probe needs chain-block-aligned shards "
-            f"(nb_local={nb_local}, chain_block={chain_block}); use probe='gather'"
-        )
+    count = _local_counter(mesh, config, n_buckets, max_probe)
 
     def local_step(counts, key_lo, key_hi, q_lo, q_hi, valid):
-        x = jax.lax.axis_index(INDEX_AXIS)
-        row_offset = (x * nb_local).astype(jnp.int32)
-        bp_local = (
-            _local_block_probe(block_probe, x, nb_local, chain_block)
-            if config.probe == "stream"
-            else None
-        )
-        c = _probe_queries_local(
-            counts[0].reshape(-1), key_lo, key_hi, q_lo[0], q_hi[0], valid[0],
-            config=config, n_buckets=n_buckets, nb_local=nb_local,
-            max_probe=max_probe, seed=seed, chain_block=chain_block,
-            row_offset=row_offset, bp_local=bp_local,
-        )
-        n_valid = jnp.sum(valid[0].astype(jnp.uint32))
-        gpb = _counts_gpb(config, n_buckets, chain_block, n_index)
-        return c.reshape(-1, layout.BUCKET_KEYS, gpb)[None], n_valid[None]
+        m_lo, m_hi = feistel_mix(q_lo[0], q_hi[0], seed=seed, xp=jnp)
+        c = count(counts[0], key_lo, key_hi, m_lo, m_hi, valid[0])
+        return c[None], jnp.sum(valid[0].astype(jnp.uint32))[None]
 
-    step = jax.shard_map(
-        local_step,
-        mesh=mesh,
-        in_specs=(
-            P(DATA_AXIS, INDEX_AXIS, None, None),
-            _key_spec(config),
-            _key_spec(config),
-            P(DATA_AXIS, None),
-            P(DATA_AXIS, None),
-            P(DATA_AXIS, None),
-        ),
-        out_specs=(P(DATA_AXIS, INDEX_AXIS, None, None), P(DATA_AXIS)),
-        check_vma=False,  # pallas_call outputs carry no vma annotation
-    )
-    return jax.jit(step, donate_argnums=(0,))
+    return _shard_step(mesh, local_step, _ROW, _ROW, _ROW)
 
 
 def make_finalize(mesh: Mesh, max_node_id: int, max_frequency: int = 1000):
@@ -397,11 +143,11 @@ def make_finalize(mesh: Mesh, max_node_id: int, max_frequency: int = 1000):
     gather per-entry kmer counts, frequency-filter, bincount by node. Entry
     arrays are sharded over all devices; XLA inserts the collectives.
 
-    ``counts`` is the (D, G, K, gpb) plane-order state; ``entry_slot``
-    must already be PLANE flat indices (``stream_probe.plane_slot_index``)."""
+    ``counts`` is the (D, n_slots) slot-order state; ``entry_slot`` indexes
+    its slot axis."""
 
     def finalize(counts, entry_slot, entry_node, entry_frequency):
-        slot_counts = jnp.sum(counts, axis=0).reshape(-1)  # plane-order flat
+        slot_counts = jnp.sum(counts, axis=0)
         ok = entry_frequency <= jnp.uint16(max_frequency)
         w = jnp.where(ok, slot_counts[entry_slot], jnp.uint32(0))
         return jnp.zeros(max_node_id + 1, dtype=jnp.uint32).at[entry_node].add(w)
@@ -417,93 +163,31 @@ class ShardedKmerMapper:
 
     def __init__(self, index: TpuKmerIndex, config: MapperConfig, mesh: Mesh):
         self.index = index
-        n_local = max(128, index.table.n_buckets // mesh.shape[INDEX_AXIS])
-        if (config.probe == "stream" and config.aug == 1 and not config.group
-                and n_local >= stream_probe.HUMAN_SCALE_BUCKETS):
-            # human-scale SHARDS pair chain blocks like KmerMapper does
-            # (thin windows -> round-slack tiles dominate; drill
-            # group=1/2/4 = 158.0/160.7/126.9 Mk/s)
-            config = dataclasses.replace(config, group=2)
-        if config.probe == "stream" and config.aug == 1:
-            # per-SHARD scalar-prefetch state must fit SMEM (each device
-            # plans over its own bucket range) — constant-1 through ~400M
-            # buckets/shard since the self-contained-schedule kernel; kept
-            # so extreme shards widen groups instead of failing (see
-            # KmerMapper)
-            needed = stream_probe.min_feasible_group(
-                n_local, streams=config.streams
-            )
-            if needed > max(1, config.group):
-                logger.info(
-                    "huge table shard (%d buckets local): widening "
-                    "stream-kernel groups to %d chain blocks", n_local, needed,
-                )
-                config = dataclasses.replace(config, group=needed)
-        if config.probe == "stream" and not config.stream_cap:
-            # queries per LOCAL block still follow the GLOBAL block count
-            # (each shard owns a bucket range of the same density)
-            config = dataclasses.replace(
-                config,
-                stream_cap=auto_stream_cap(
-                    config.buf // config.streams, index.table.n_buckets,
-                    config.read_len, config.k, streams=config.streams,
-                    group=max(1, config.group),
-                ),
-            )
         self.config = config
         self.mesh = mesh
         self.n_data = mesh.shape[DATA_AXIS]
         table = index.table
-
-        def put(arr, spec):
-            return jax.device_put(arr, NamedSharding(mesh, spec))
-
-        chain_block = min(layout.CHAIN_BLOCK, table.n_buckets)
-        self._gpb = _counts_gpb(
-            config, table.n_buckets, chain_block, mesh.shape[INDEX_AXIS]
+        self.key_lo = jax.device_put(table.key_lo, NamedSharding(mesh, _KEYS))
+        self.key_hi = jax.device_put(table.key_hi, NamedSharding(mesh, _KEYS))
+        self.counts = jax.device_put(
+            jnp.zeros((self.n_data, table.n_slots), dtype=jnp.uint32),
+            NamedSharding(mesh, _COUNTS),
         )
-        if config.probe == "stream":
-            # plane layout for the stream kernel (see stream_probe.plane_keys),
-            # bucket groups sharded over the index axis on the leading dim
-            if config.aug > 1:
-                aug_lo, aug_hi = table.aug_keys(config.aug)
-            else:
-                aug_lo, aug_hi = table.key_lo, table.key_hi
-            p_lo, p_hi = stream_probe.plane_keys(
-                aug_lo, aug_hi, group=max(1, config.group)
-            )
-            self.key_lo = put(p_lo, _key_spec(config))
-            self.key_hi = put(p_hi, _key_spec(config))
-        else:
-            self.key_lo = put(table.key_lo, _key_spec(config))
-            self.key_hi = put(table.key_hi, _key_spec(config))
-        # counts are (D, G, K, gpb) plane order: each device's local block
-        # IS its flat plane-order count shard
-        self.counts = put(
-            jnp.zeros(
-                (
-                    self.n_data,
-                    table.n_buckets // self._gpb,
-                    layout.BUCKET_KEYS,
-                    self._gpb,
-                ),
-                dtype=jnp.uint32,
-            ),
-            P(DATA_AXIS, INDEX_AXIS, None, None),
-        )
-        block_probe = table.block_max_probe() if config.probe == "stream" else None
-        self._block_probe = block_probe
-        self._step = make_sharded_step(
-            mesh, config, table.n_buckets, table.max_probe, table.seed, block_probe
-        )
-        self._ragged_step = None  # lazy twin for batches that break read_len
-        self._plane_step = None  # lazy word-plane twin for conforming batches
-        self._hash_steps: dict = {}  # per-row-size pre-hashed batch steps
+        self._steps: dict = {}  # lazily compiled: "ragged", "plane", hash sizes
         self._stats: list = []
         self._total_kmers = 0
         self.n_invalid_bases = 0
-        self._spec_row = NamedSharding(mesh, P(DATA_AXIS, None))
-        self._spec_scalar = NamedSharding(mesh, P(DATA_AXIS))
+        self._spec_row = NamedSharding(mesh, _ROW)
+        self._spec_scalar = NamedSharding(mesh, _SCALAR)
+
+    def _get_step(self, key, make, config):
+        step = self._steps.get(key)
+        if step is None:
+            t = self.index.table
+            step = self._steps[key] = make(
+                self.mesh, config, t.n_buckets, t.max_probe, t.seed
+            )
+        return step
 
     def map_batch(
         self,
@@ -513,62 +197,39 @@ class ShardedKmerMapper:
         n_invalid: int = 0,
     ) -> None:
         """packed uint32[D, packed_words], lengths uint16[D, max_reads],
-        n_bases int32[D]. Short final batches are padded with empty rows."""
-        step = self._step
-        if self.config.read_len and not self._batch_is_fixed(
-            lengths_batch, n_bases
-        ):
-            if self._ragged_step is None:
-                # streams carries over: the ragged step segments the query
-                # array itself (stream_probe.mix_pad_segments)
-                cfg = dataclasses.replace(self.config, read_len=0)
-                self._ragged_step = make_sharded_step(
-                    self.mesh,
-                    cfg,
-                    self.index.table.n_buckets,
-                    self.index.table.max_probe,
-                    self.index.table.seed,
-                    self._block_probe,
-                )
-            step = self._ragged_step
-        elif self.config.read_len and self.config.probe == "stream":
-            # conforming batch: restride each row host-side (native C++ word
-            # shifts when available) and take the word-plane fast step
-            return self._map_batch_plane(packed_batch, n_bases, n_invalid)
-        self.counts, n_valid = step(
-            self.counts,
-            self.key_lo,
-            self.key_hi,
-            jax.device_put(packed_batch, self._spec_row),
-            jax.device_put(lengths_batch, self._spec_row),
-            jax.device_put(n_bases, self._spec_scalar),
-        )
-        self._stats.append(n_valid)
+        n_bases int32[D]. Short final batches are padded with empty rows.
+        Batches of whole ``config.read_len`` reads take the word-plane step;
+        any other batch takes the ragged step (identical counts)."""
+        if self.config.read_len and self._batch_is_fixed(lengths_batch, n_bases):
+            self._map_batch_plane(packed_batch, n_bases)
+        else:
+            step = self._get_step("ragged", make_sharded_step, self.config)
+            self.counts, n_valid = step(
+                self.counts,
+                self.key_lo,
+                self.key_hi,
+                jax.device_put(packed_batch, self._spec_row),
+                jax.device_put(lengths_batch, self._spec_row),
+                jax.device_put(n_bases, self._spec_scalar),
+            )
+            self._stats.append(n_valid)
         self.n_invalid_bases += n_invalid
 
-    def _map_batch_plane(self, packed_batch, n_bases, n_invalid) -> None:
+    def _map_batch_plane(self, packed_batch, n_bases) -> None:
+        # restride each row host-side (native C++ word shifts when available)
         from ..io.readers import restride_packed, strided_rows
 
         L = self.config.read_len
         rows = strided_rows(self.config.buf, L)
-        n_bases = np.asarray(n_bases)
-        n_reads = (n_bases // L).astype(np.int32)
+        n_reads = (np.asarray(n_bases) // L).astype(np.int32)
         strided = np.stack(
             [
                 restride_packed(row, nr, L, rows)
                 for row, nr in zip(np.asarray(packed_batch), n_reads)
             ]
         )
-        if self._plane_step is None:
-            self._plane_step = make_sharded_plane_step(
-                self.mesh,
-                self.config,
-                self.index.table.n_buckets,
-                self.index.table.max_probe,
-                self.index.table.seed,
-                self._block_probe,
-            )
-        self.counts, n_valid = self._plane_step(
+        step = self._get_step("plane", make_sharded_plane_step, self.config)
+        self.counts, n_valid = step(
             self.counts,
             self.key_lo,
             self.key_hi,
@@ -576,19 +237,16 @@ class ShardedKmerMapper:
             jax.device_put(n_reads, self._spec_scalar),
         )
         self._stats.append(n_valid)
-        self.n_invalid_bases += n_invalid
 
     def map_hashes(self, kmers: np.ndarray) -> None:
         """Count a batch of pre-hashed uint64 kmers — the KAGE library call
         shape (``kmer_mapper/mapper.pyx:19``) on a SHARDED index: the batch
         splits over the data axis, every index shard counts the keys it owns.
         Multi-GB indexes that need ``--index-parallel`` get the same
-        pre-hashed surface as the single-chip ``KmerMapper.map_hashes``.
+        pre-hashed surface as the single-device ``KmerMapper.map_hashes``.
 
         Batches are padded to a power of two so repeated calls reuse a few
-        compiled steps; batches past the ~2^24-element sort cliff segment
-        per data row like every other path (clamped to the per-shard
-        schedule's SMEM feasibility)."""
+        compiled steps."""
         from ..ops.u32hash import split_u64
 
         kmers = np.asarray(kmers, dtype=np.uint64)
@@ -599,31 +257,8 @@ class ShardedKmerMapper:
         D = self.n_data
         npad = 1 << max(0, (max(n, D) - 1)).bit_length()
         per = npad // D
-        step = self._hash_steps.get(per)
-        if step is None:
-            table = self.index.table
-            cfg = dataclasses.replace(self.config, read_len=0)
-            if cfg.probe == "stream":
-                nb_local = table.n_buckets // self.mesh.shape[INDEX_AXIS]
-                streams = max(1, min(8, per >> 24))
-                streams = min(
-                    streams,
-                    stream_probe.max_feasible_streams(max(128, nb_local)),
-                )
-                cfg = dataclasses.replace(
-                    cfg,
-                    streams=streams,
-                    stream_cap=auto_stream_cap(
-                        per // streams, table.n_buckets,
-                        valid_frac=1.0, streams=streams,
-                    ),
-                )
-            step = self._hash_steps[per] = make_sharded_hash_step(
-                self.mesh, cfg, table.n_buckets, table.max_probe, table.seed,
-                self._block_probe if cfg.probe == "stream" else None,
-            )
-        valid = np.zeros(npad, dtype=bool)
-        valid[:n] = True
+        step = self._get_step(("hash", per), make_sharded_hash_step, self.config)
+        valid = np.arange(npad) < n
         self.counts, n_valid = step(
             self.counts,
             self.key_lo,
@@ -651,14 +286,10 @@ class ShardedKmerMapper:
 
     def save_state(self, path) -> None:
         """Checkpoint the accumulated count shards + totals (resume long
-        multi-chip runs; mirrors ``KmerMapper.save_state``). The file stores
-        the external slot order; the device keeps plane order."""
-        fetched = np.asarray(jax.device_get(self.counts))  # (D, G, K, gpb)
+        multi-device runs; mirrors ``KmerMapper.save_state``)."""
         np.savez(
             path,
-            counts=np.ascontiguousarray(fetched.transpose(0, 1, 3, 2)).reshape(
-                self.n_data, -1
-            ),
+            counts=np.asarray(jax.device_get(self.counts)),
             n_kmers=np.int64(self.n_kmers_mapped),
             n_invalid=np.int64(self.n_invalid_bases),
         )
@@ -671,16 +302,8 @@ class ShardedKmerMapper:
                     f"checkpoint counts shape {counts.shape} does not match "
                     f"mesh ({self.n_data}, {self.index.table.n_slots})"
                 )
-            n_buckets = self.index.table.n_buckets
-            plane = np.ascontiguousarray(
-                counts.reshape(
-                    self.n_data, n_buckets // self._gpb, self._gpb,
-                    layout.BUCKET_KEYS,
-                ).transpose(0, 1, 3, 2)
-            )
             self.counts = jax.device_put(
-                plane,
-                NamedSharding(self.mesh, P(DATA_AXIS, INDEX_AXIS, None, None)),
+                counts.astype(np.uint32), NamedSharding(self.mesh, _COUNTS)
             )
             self._stats = []
             self._total_kmers = int(data["n_kmers"])
@@ -692,13 +315,7 @@ class ShardedKmerMapper:
         n_dev = self.mesh.size
         n = len(self.index.entry_slot)
         pad = (-n) % n_dev
-        # the device counts live in plane order — translate the slot ids once
-        plane_slot = stream_probe.plane_slot_index(
-            self.index.entry_slot.astype(np.int64),
-            self.index.table.n_buckets,
-            self._gpb,
-        ).astype(np.int32)
-        slot = np.pad(plane_slot, (0, pad))
+        slot = np.pad(self.index.entry_slot, (0, pad))
         node = np.pad(self.index.entry_node, (0, pad))
         # padding entries point at node 0 but are masked by frequency = max
         freq = np.pad(self.index.entry_frequency, (0, pad), constant_values=0xFFFF)

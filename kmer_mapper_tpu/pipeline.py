@@ -1,7 +1,8 @@
 """End-to-end mapping pipeline: file -> framed chunks -> device step -> node counts.
 
 The driver equivalent of the reference's ``map_bnp``
-(``kmer_mapper/command_line_interface.py:82-152``), restructured for TPU:
+(``kmer_mapper/command_line_interface.py:82-152``), restructured for an
+accelerator:
 
 * The reference's process-pool + POSIX-shared-memory map-reduce
   (``additative_shared_array_map_reduce``, ``:124-130``) becomes a host
@@ -180,6 +181,13 @@ def map_file(
     return node_counts
 
 
+def device_buffer(chunk_size: int) -> int:
+    """Device chunk capacity in bases for a ``chunk_size`` (reads-file bytes
+    per chunk): at least 64 Ki bases, at most 64 Mi, a multiple of 8 Ki. The
+    GPU size is not tuned yet (it follows the reference's chunk size)."""
+    return _round_up(min(max(chunk_size, 1 << 16), 64 << 20), 1 << 13)
+
+
 def make_mapper_and_chunks(
     index: TpuKmerIndex,
     reads_path: str,
@@ -192,26 +200,13 @@ def make_mapper_and_chunks(
 ) -> tuple[KmerMapper, Iterable]:
     """Build the device mapper plus the packed host chunk iterator.
 
-    The device buffer is 64 Mi bases regardless of ``chunk_size`` (the
-    reference's 2.5 MB default is a CPU-pool tuning knob; on TPU the
-    fixed-read-length path sorts the chunk as multi-stream segments and the
-    kernel's per-chunk tile count is ~constant — see ``_buf_floor``; tables
-    whose schedule needs group >= 4 ride 128 Mi). On CPU (tests/fallback)
-    the buffer follows chunk_size directly.
-
     If the file's reads are uniform-length (the Illumina case — detected from
     a peek at the first records, confirmed per buffer), the step compiles with
     ``read_len`` set and conforming buffers arrive directly in the word-plane
     strided layout from the frame+pack pass (native C++ or numpy — no separate
     restride pass); non-uniform chunks take a ragged twin step with identical
     results."""
-    floor, paged = _buf_floor(index, k)
-    buf = _round_up(min(max(chunk_size, floor), max(floor, 64 << 20)), 1 << 13)
-    if paged:
-        logger.info(
-            "large index (%d buckets): the kernel schedule is HBM-paged "
-            "(device buffer %d Mi bases)", index.table.n_buckets, buf >> 20,
-        )
+    buf = device_buffer(chunk_size)
 
     def make_config(read_len):
         return default_config(
@@ -221,11 +216,9 @@ def make_mapper_and_chunks(
             revcomp=map_reverse_complements,
             accumulate=accumulate,
             read_len=read_len,
-            streams=_pick_streams(read_len, paged, buf, k, index.table.n_buckets),
         )
-    rl_hint = 0
-    if default_config(k=k).probe == "stream":  # only the stream path consumes
-        rl_hint = _peek_read_len(reads_path, k)  # the strided layout
+
+    rl_hint = _peek_read_len(reads_path, k)
     chunks = iter(
         packed_chunk_iterator(
             reads_path, make_config(rl_hint), chunk_size, reader_workers
@@ -246,22 +239,20 @@ def _strided_chunks(packed_iter, config: MapperConfig):
     """Normalize packed chunks to 6-tuples (+``strided``), restriding fixed
     uniform-read_len buffers into the word-plane layout on the fly.
 
-    Producers pack continuously (the native loader always; ``pack_for_device``
-    unless asked otherwise); when the mapper runs the fixed-read-length stream
-    path, conforming buffers are restrided here — inside the prefetch
+    Producers pack strided when asked up front (``_peek_read_len``); a
+    continuous buffer of uniform ``read_len`` reads (the peek missed, but the
+    first buffer detected it) is restrided here — inside the prefetch
     thread's pull, so the host word shifts overlap device compute. Buffers
     that are not uniform ``read_len`` reads pass through continuous and take
     the ragged step (identical results)."""
-    use_plane = bool(config.read_len) and config.probe == "stream"
-    rows = readers.strided_rows(config.buf, config.read_len) if use_plane else 0
+    rows = readers.strided_rows(config.buf, config.read_len) if config.read_len else 0
     for tup in packed_iter:
         if len(tup) == 6:  # pack_for_device(read_len=...) already decided
             yield tup
             continue
         packed, lengths, n_bases, n_reads, n_invalid = tup
-        strided = (
-            use_plane
-            and chunk_is_fixed(lengths, n_bases, config.read_len)
+        strided = bool(config.read_len) and chunk_is_fixed(
+            lengths, n_bases, config.read_len
         )
         if strided:
             packed = readers.restride_packed(
@@ -334,34 +325,29 @@ def map_file_sharded(
 ) -> np.ndarray:
     """Multi-device mapping over a (data, index) mesh: chunks fan out over the
     data axis, the table shards over the index axis (for multi-GB indexes),
-    counts are combined on device at finalization. Single-host multi-chip; for
+    counts are combined on device at finalization. Single-host multi-device; for
     multi-host, run one pipeline per host on its own file shard and sum the
     node-count vectors. ``strict_bases``/``profile_dir``/``reader_workers``
-    as in ``map_file`` — multi-chip feeds are exactly where one framing core
-    (~485 Mkmers/s worth of bases) stops being enough."""
+    as in ``map_file`` — multi-device feeds are where one framing core stops
+    being enough."""
     import contextlib
 
-    from .models.mapper import default_config
     from .parallel import ShardedKmerMapper, batch_packed_chunks, make_mesh
     from .utils import profiling
 
     index = load_index(index)
     mesh = make_mesh(n_devices=n_devices, index_parallel=index_parallel)
-    floor, paged = _buf_floor(index, k, n_shards=index_parallel)
-    buf = _round_up(min(max(chunk_size, floor), max(floor, 64 << 20)), 1 << 13)
+    buf = device_buffer(chunk_size)
 
     def make_config(read_len):
-        # same multi-stream default as map_file (per-shard schedules decide
-        # paged-ness and feasibility: shards of a big table often fit SMEM)
-        n_local = max(128, index.table.n_buckets // max(1, index_parallel))
         return default_config(
             k=k,
             buf=buf,
             max_reads=max(1024, buf // 32),
             revcomp=map_reverse_complements,
             read_len=read_len,
-            streams=_pick_streams(read_len, paged, buf, k, n_local),
         )
+
     config = make_config(0)
     packed = iter(
         packed_chunk_iterator(reads_path, config, chunk_size, reader_workers)
@@ -425,46 +411,6 @@ def map_sequences(
     return mapper.node_counts(max_frequency=max_frequency)
 
 
-def _pick_streams(read_len: int, paged: bool, buf: int, k: int, n_local: int) -> int:
-    """Production multi-stream default (v5e sweeps, BASELINE.md): the 64 Mi
-    chunk sorts as independent ~2^24-sized segments served by fused
-    multi-stream kernel tiles — XLA's sort is fastest below ~2^24 elements
-    while kernel tiles per chunk are ~constant.
-
-    All four S-choices re-attested at the round-5 plane-layout kernel with
-    the retuned 1.40x cap (BASELINE.md round-5 section; the pre-retune
-    rates in older notes are superseded):
-
-    * fixed-read-length (word-plane) chunks: S=4 on SMEM-schedule tables
-      (402.9 vs 394.3/377.6 Mk/s at S=2/6, rtt-subtracted; ~53.8M
-      windows/chunk), S=2 on paged tables (319.3 vs 253.9/296.3 at S=1/S=4
-      on the 4.19M-bucket table — thin per-block windows make S=4's
-      tighter cap inflate the tile count);
-    * ragged chunks: S=6 on SMEM-schedule tables (262.6 vs 238.0 at S=4 —
-      all 67M buf slots are window candidates, so more segments reach the
-      sort sweet spot), S=4 on paged tables (188.9 vs 165.2 at S=2 on the
-      12.8M-key table; S=6 is SMEM-infeasible there);
-    * HUMAN-SCALE tables (>= 2^25 buckets per chip, reachable since the
-      self-contained-schedule kernel made group=1 feasible there): S=1 —
-      per-block windows are so thin (~400 queries/block at 128 Mi) that
-      extra streams only widen tiles and add sub-pass overhead (150M-key
-      drill at group=1: S=1/2/4 = 158.0/140.0/117.8 Mk/s,
-      r8_scale_drill.py). Ragged input gets the same gate by the same
-      thin-window argument (extrapolated, not separately measured);
-
-    clamped by ``stream_probe.max_feasible_streams`` (with self-contained
-    schedule entries that bound is ~40 — it only binds in monkeypatched
-    tests, but keeps the policy mechanically safe)."""
-    if buf < 64 << 20 or default_config(k=k).probe != "stream":
-        return 1
-    from .ops import stream_probe
-
-    if n_local >= stream_probe.HUMAN_SCALE_BUCKETS:
-        return 1
-    desired = (2 if paged else 4) if read_len else (4 if paged else 6)
-    return max(1, min(desired, stream_probe.max_feasible_streams(n_local)))
-
-
 def _detect_read_len(first_chunk, k: int) -> int:
     """Uniform read length of a packed chunk (0 if ragged/empty/too short):
     decides whether the step compiles with the fixed-read_len window slicing
@@ -504,52 +450,6 @@ def _peek_read_len(reads_path: str, k: int, peek_bytes: int = 512 << 10) -> int:
     lengths = chunk.read_lengths
     L = int(lengths[0])
     return L if L >= k and np.all(lengths == L) else 0
-
-
-def _buf_floor(
-    index: TpuKmerIndex | None = None, k: int = 31, n_shards: int = 1
-) -> tuple[int, bool]:
-    """(device buffer floor in bases, schedule-is-paged). On TPU the floor is
-    64 Mi: fixed-read-length files sort it as 4 multi-stream segments (the
-    v5e optimum, 353 Mk/s); large paged tables amortize their ~constant
-    per-chunk kernel tile count (210 vs 151 Mk/s at 64 vs 16 Mi,
-    r3_large_table.py); ragged single-stream files lose only ~3% vs their own
-    32 Mi optimum — not worth a second compile shape. Human-scale tables
-    (>= 2^25 buckets ≈ 128M keys per chip) keep a 128 Mi floor: measured on
-    the 150M-key drill both pre- and post- the self-contained-schedule
-    kernel (r8_scale_drill.py: group=4 era 127.5 vs 110.4 Mk/s at
-    128 vs 64 Mi; the group=1 4.19M-bucket table gained only +1.8% from
-    128 Mi — hence the bucket-count gate). The paged-ness flag (the kernel's
-    own planner at a 32 Mi probe; the first shard's block span approximates
-    a sharded index) picks the stream count in make_config."""
-    import jax
-
-    if jax.default_backend() != "tpu":
-        return 1 << 16, False
-    floor = 64 << 20
-    if index is None:
-        return floor, False
-    from .models.mapper import auto_stream_cap
-    from .ops import stream_probe
-
-    t = index.table
-    n_local = max(128, t.n_buckets // max(1, n_shards))
-    if n_local >= stream_probe.HUMAN_SCALE_BUCKETS:
-        floor = 128 << 20
-    cap = auto_stream_cap(32 << 20, t.n_buckets, 0, k)
-    n_q = 32 << 20  # query slots before invalid thinning (upper bound)
-    try:
-        plan = stream_probe.plan_schedule(
-            n_local,
-            n_q + (-n_q) % cap + 2 * cap,
-            cap=cap,
-            max_probe=t.max_probe,
-            block_probe=t.block_max_probe()[: n_local // min(128, n_local)],
-        )
-        paged = not plan.use_meta
-    except ValueError:
-        paged = True  # beyond even the paged single-chip schedule
-    return floor, paged
 
 
 def _round_up(x: int, m: int) -> int:

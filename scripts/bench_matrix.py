@@ -4,8 +4,8 @@ Covers the five benchmark configurations on whatever accelerator JAX provides:
   1. toy .fa against a toy .npz index, single chunk (correctness + latency)
   2. gzipped FASTQ streaming (host decode + device map)
   3. k sweep (16/21/31) with reverse complements and N-masking
-  4. large HBM-resident index, higher read volume
-  5. index sharded over available devices (ICI all-reduce of counts)
+  4. large device-resident index, higher read volume
+  5. index sharded over available devices (all-reduce of counts)
 
 Each config reports wall time, mapped kmers/s, and the node-count sum (> 0:
 indexes are built from the reads' own kmers). First run per config includes
@@ -66,13 +66,15 @@ def index_from_reads(rng, reads, k, n_extra, n_nodes, sample=30_000):
 
 
 def main():
+    import tempfile
+
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
     from kmer_mapper_tpu import pipeline
+    from kmer_mapper_tpu.utils.compile_cache import enable_compile_cache
 
-    tmp = Path("/tmp/kmt_bench")
-    tmp.mkdir(exist_ok=True)
+    enable_compile_cache()
+    tmp = Path(tempfile.mkdtemp(prefix="kmt_bench_"))
     rng = np.random.default_rng(0)
     rows = []
 
@@ -116,7 +118,7 @@ def main():
             ),
         )
 
-    # config 4: large HBM index, higher volume
+    # config 4: large device-resident index, higher volume
     reads4 = make_reads(rng, 300_000)
     idx4 = index_from_reads(rng, reads4, 31, 16_000_000, 3_000_000, sample=100_000)
     log(f"config-4 index: {idx4.n_unique} unique, {idx4.table.nbytes / 1e6:.0f} MB")

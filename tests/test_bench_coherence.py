@@ -1,30 +1,20 @@
-"""Bench-to-production coherence (VERDICT r4 weak #6): the config bench.py
-measures is mechanically the config ``pipeline.map_file`` would pick for the
-same index + read length. Both sides resolve through the SAME functions
-(``_buf_floor`` -> ``_pick_streams`` -> ``KmerMapper`` auto cap/group), and
-this test pins them equal on a synthetic fixed-151bp file with the backend
-forced to report "tpu" (so the TPU policy branches are the ones compared;
-nothing executes on a device — KmerMapper's jit is lazy)."""
+"""Bench-to-production coherence: the mapper ``bench.py`` measures is
+mechanically the one ``pipeline.map_file`` builds for the same index, read
+length and device buffer, on whatever backend the tests run (nothing
+executes on a device — KmerMapper's jit is lazy)."""
 import sys
+from pathlib import Path
 
 import numpy as np
-import pytest
 
-sys.path.insert(0, "/root/repo")  # bench.py lives at the repo root, not in the package
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))  # bench.py
 
-import jax
-
-from kmer_mapper_tpu import oracle, pipeline
-from kmer_mapper_tpu.index import kmer_index as ki
+from kmer_mapper_tpu import pipeline  # noqa: E402
+from kmer_mapper_tpu.index import kmer_index as ki  # noqa: E402
 
 READ_LEN = 151
 K = 31
-
-
-@pytest.fixture
-def tpu_policy(monkeypatch):
-    """Make the policy functions take their TPU branches on the CPU box."""
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+BUF = 64 << 20  # bench.py's default BENCH_BUF_MI
 
 
 def _small_index(rng, n=60_000):
@@ -33,50 +23,44 @@ def _small_index(rng, n=60_000):
     return ki.TpuKmerIndex.from_entries(kmers, nodes)
 
 
-def _fixed_len_fasta(tmp_path, rng, n_reads=64):
-    path = tmp_path / "reads_151.fa"
+def _fasta(tmp_path, rng, lengths):
+    path = tmp_path / "reads.fa"
     with open(path, "w") as f:
-        for i in range(n_reads):
-            f.write(f">r{i}\n{''.join(rng.choice(list('ACGT'), READ_LEN))}\n")
+        for i, n in enumerate(lengths):
+            f.write(f">r{i}\n{''.join(rng.choice(list('ACGT'), n))}\n")
     return str(path)
 
 
-def test_bench_config_equals_map_file_config(tmp_path, tpu_policy):
+def _production_config(index, reads, chunk_size):
+    mapper, chunks = pipeline.make_mapper_and_chunks(
+        index, reads, K, chunk_size=chunk_size,
+        map_reverse_complements=False, accumulate="scatter",
+    )
+    for _ in chunks:  # drain so the prefetch machinery exits cleanly
+        pass
+    return mapper.config
+
+
+def test_bench_config_equals_map_file_config(tmp_path):
+    """Fixed 151 bp reads: bench's plane-step config is map_file's."""
     import bench
 
     rng = np.random.default_rng(3)
     index = _small_index(rng)
-    reads = _fixed_len_fasta(tmp_path, rng)
-
-    bench_mapper, policy_streams, paged = bench.resolve_bench_mapper(
-        index, READ_LEN, buf=64 << 20, k=K
-    )
-    prod_mapper, chunks = pipeline.make_mapper_and_chunks(
-        index, reads, K, chunk_size=2_500_000,
-        map_reverse_complements=False, accumulate="scatter",
-    )
-    for _ in chunks:  # drain so the prefetch thread exits cleanly
-        pass
-
-    b, p = bench_mapper.config, prod_mapper.config
-    # every field the kernel compiles against must agree; max_reads is a
-    # host buffer bound with no device-side effect and may differ
-    assert (b.probe, b.streams, b.stream_cap, b.group, b.buf, b.read_len) == (
-        p.probe, p.streams, p.stream_cap, p.group, p.buf, p.read_len
-    )
-    assert b.streams == policy_streams  # no silent override in the default path
-    assert b.k == p.k == K
-    assert paged == pipeline._buf_floor(index, K)[1]
+    reads = _fasta(tmp_path, rng, [READ_LEN] * 64)
+    bench_mapper = bench.resolve_bench_mapper(index, READ_LEN, buf=BUF, k=K)
+    assert bench_mapper.config == _production_config(index, reads, BUF)
+    assert bench_mapper.config.read_len == READ_LEN
 
 
-def test_bench_streams_override_is_explicit(tpu_policy):
-    """BENCH_STREAMS diverges from policy only via the explicit override arg."""
+def test_bench_ragged_config_equals_map_file_config(tmp_path):
+    """BENCH_RAGGED=1 (mixed-length reads): bench's ragged-step config is
+    the one map_file picks for a mixed-length file."""
     import bench
 
     rng = np.random.default_rng(4)
     index = _small_index(rng)
-    mapper, policy_streams, _ = bench.resolve_bench_mapper(
-        index, READ_LEN, buf=64 << 20, k=K, streams_override=2
-    )
-    assert mapper.config.streams == 2
-    assert policy_streams == 4  # meta-schedule fixed-length production policy
+    reads = _fasta(tmp_path, rng, rng.integers(READ_LEN - 50, READ_LEN + 51, 64))
+    bench_mapper = bench.resolve_bench_mapper(index, 0, buf=BUF, k=K)
+    assert bench_mapper.config == _production_config(index, reads, BUF)
+    assert bench_mapper.config.read_len == 0

@@ -107,11 +107,11 @@ def test_repeated_calls_reuse_cached_index_and_mapper():
     q1 = rng.choice(keys, 150)
     q2 = np.concatenate([rng.choice(keys, 80), rng.integers(0, 1 << 62, 70, dtype=np.uint64)])
 
-    tpu_before = compat._as_tpu_index(arrays)
+    dev_before = compat._as_device_index(arrays)
     c1 = compat.map_kmers_to_graph_index(arrays, int(nodes.max()), q1)
     c2 = compat.map_kmers_to_graph_index(arrays, int(nodes.max()), q2)
     c1_again = compat.map_kmers_to_graph_index(arrays, int(nodes.max()), q1)
-    assert compat._as_tpu_index(arrays) is tpu_before  # no rebuild
+    assert compat._as_device_index(arrays) is dev_before  # no rebuild
     np.testing.assert_array_equal(c1, c1_again)  # counts reset between calls
     np.testing.assert_array_equal(
         c2, oracle.map_kmers_to_index(arrays, q2, max_node_id=int(nodes.max()))

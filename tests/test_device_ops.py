@@ -149,10 +149,10 @@ def test_full_chunk_step_matches_oracle(accumulate):
     )
     nodes = rng.integers(0, 50, len(entry_kmers)).astype(np.int32)
     arrays = oracle.build_kmer_index(entry_kmers, nodes, 251)
-    tpu = ki.TpuKmerIndex.from_arrays(arrays)
+    dev_index = ki.TpuKmerIndex.from_arrays(arrays)
 
     config = MapperConfig(k=k, buf=2048, max_reads=128, accumulate=accumulate)
-    mapper = KmerMapper(tpu, config)
+    mapper = KmerMapper(dev_index, config)
     mapper.map_chunk(*_pack_reads(reads, config))
     got = mapper.node_counts()
 
@@ -173,10 +173,10 @@ def test_chunk_step_revcomp():
     entry_kmers = rng.choice(np.concatenate([fwd, oracle.revcomp_hash(fwd, k)]), 60)
     nodes = np.arange(len(entry_kmers), dtype=np.int32)
     arrays = oracle.build_kmer_index(entry_kmers, nodes, 499)
-    tpu = ki.TpuKmerIndex.from_arrays(arrays)
+    dev_index = ki.TpuKmerIndex.from_arrays(arrays)
 
     config = MapperConfig(k=k, buf=1024, max_reads=64, revcomp=True)
-    mapper = KmerMapper(tpu, config)
+    mapper = KmerMapper(dev_index, config)
     mapper.map_chunk(*_pack_reads(reads, config))
     got = mapper.node_counts()
 
@@ -188,8 +188,8 @@ def test_chunk_step_revcomp():
 def test_map_hashes_counter_parity():
     rng = np.random.default_rng(7)
     keys = np.unique(rng.integers(0, 1 << 62, 500, dtype=np.uint64))
-    tpu = ki.TpuKmerIndex.from_counter_keys(keys)
-    mapper = KmerMapper(tpu, MapperConfig(k=31, buf=256, max_reads=16))
+    dev_index = ki.TpuKmerIndex.from_counter_keys(keys)
+    mapper = KmerMapper(dev_index, MapperConfig(k=31, buf=256, max_reads=16))
     queries = np.concatenate(
         [rng.choice(keys, 2000), rng.integers(0, 1 << 62, 300, dtype=np.uint64)]
     )
@@ -201,8 +201,8 @@ def test_map_hashes_counter_parity():
 
 def test_invalid_base_tracking_host():
     config = MapperConfig(k=3, buf=64, max_reads=8)
-    tpu = ki.TpuKmerIndex.from_counter_keys(np.array([1, 2, 3], dtype=np.uint64))
-    mapper = KmerMapper(tpu, config)
+    dev_index = ki.TpuKmerIndex.from_counter_keys(np.array([1, 2, 3], dtype=np.uint64))
+    mapper = KmerMapper(dev_index, config)
     mapper.map_chunk(*_pack_reads(["ACGXGA"], config))
     assert mapper.n_invalid_bases == 1
 
@@ -212,7 +212,7 @@ def test_super_batch_matches_single_dispatch():
     rng = np.random.default_rng(11)
     k = 7
     keys = np.unique(rng.integers(0, 4**k, 500, dtype=np.uint64))
-    tpu = ki.TpuKmerIndex.from_counter_keys(keys)
+    dev_index = ki.TpuKmerIndex.from_counter_keys(keys)
     chunk_sets = []
     base = MapperConfig(k=k, buf=512, max_reads=32)
     for _ in range(7):  # 7 chunks: exercises a padded final super-batch
@@ -223,14 +223,14 @@ def test_super_batch_matches_single_dispatch():
     for name, kw in {
         "sb1": dict(super_batch=1),
         "sb3": dict(super_batch=3),
-        "sb3-stream": dict(super_batch=3, probe="stream", interpret=True),
+        "sb3-sorted": dict(super_batch=3, accumulate="sorted"),
     }.items():
         config = MapperConfig(k=k, buf=512, max_reads=32, **kw)
-        mapper = KmerMapper(tpu, config)
+        mapper = KmerMapper(dev_index, config)
         for c in chunk_sets:
             mapper.map_chunk(*c)
         results[name] = (mapper.node_counts(), mapper.n_kmers_mapped)
-    for name in ("sb3", "sb3-stream"):
+    for name in ("sb3", "sb3-sorted"):
         np.testing.assert_array_equal(results["sb1"][0], results[name][0])
         assert results["sb1"][1] == results[name][1]
 
@@ -281,32 +281,6 @@ def test_window_mask_padding_contract():
     assert m1[: n_bases - k + 1].all() and not m1[n_bases - k + 1 :].any()
 
 
-def test_map_hashes_stream_route_matches_gather():
-    """The large-batch stream route of map_hashes (interpret mode here; the
-    compiled path on TPU) must count identically to the gather route."""
-    from kmer_mapper_tpu.models.mapper import KmerMapper, MapperConfig
-
-    rng = np.random.default_rng(31)
-    keys = np.unique(rng.integers(0, 1 << 62, 3000, dtype=np.uint64))
-    index = ki.TpuKmerIndex.from_counter_keys(keys)
-    hashes = np.concatenate(
-        [rng.choice(keys, 1500), rng.integers(0, 1 << 62, 548, dtype=np.uint64)]
-    )
-    gather = KmerMapper(index, MapperConfig(k=31, buf=256, max_reads=16))
-    gather.map_hashes(hashes)
-    stream = KmerMapper(
-        index, MapperConfig(k=31, buf=256, max_reads=16, probe="stream", interpret=True)
-    )
-    old_min = KmerMapper.STREAM_HASH_MIN
-    KmerMapper.STREAM_HASH_MIN = 1024  # force the stream route at test size
-    try:
-        stream.map_hashes(hashes)
-    finally:
-        KmerMapper.STREAM_HASH_MIN = old_min
-    np.testing.assert_array_equal(stream.slot_counts(), gather.slot_counts())
-    assert stream.n_kmers_mapped == len(hashes)
-
-
 def test_feistel_mix_bijective_and_backend_identical():
     from kmer_mapper_tpu.ops.u32hash import feistel_mix, feistel_unmix
 
@@ -328,8 +302,8 @@ def test_feistel_mix_bijective_and_backend_identical():
 
 
 def test_bucket_of_uniformity_and_low_word_grouping():
-    """bucket_of must equal the high bits of the mixed low word (the sort-key
-    contract of the stream path) and spread clustered kmers."""
+    """bucket_of must equal the high bits of the mixed low word (the probe's
+    bucket contract) and spread clustered kmers."""
     from kmer_mapper_tpu.ops.u32hash import bucket_of, bucket_shift, feistel_mix
 
     rng = np.random.default_rng(4)

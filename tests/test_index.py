@@ -81,15 +81,15 @@ def test_reference_npz_underscore_fields_and_missing_frequencies(tmp_path):
 
 def test_tpu_index_node_counts_match_oracle_probe():
     index = ki.build_toy_index(n_unique=2000, k=31, n_nodes=500, seed=5)
-    tpu = ki.TpuKmerIndex.from_arrays(index)
+    dev_index = ki.TpuKmerIndex.from_arrays(index)
     rng = np.random.default_rng(6)
     queries = np.concatenate(
         [rng.choice(index.kmers, 5000), rng.integers(0, 1 << 62, 1000, dtype=np.uint64)]
     )
     # count on the "device" structure via the host query path
-    slots = layout.query_table(tpu.table, queries)
-    slot_counts = np.bincount(slots[slots >= 0], minlength=tpu.table.n_slots)
-    got = tpu.node_counts(slot_counts)
+    slots = layout.query_table(dev_index.table, queries)
+    slot_counts = np.bincount(slots[slots >= 0], minlength=dev_index.table.n_slots)
+    got = dev_index.node_counts(slot_counts)
     expect = oracle.map_kmers_to_index(index, queries)
     np.testing.assert_array_equal(got, expect)
 
@@ -99,44 +99,44 @@ def test_tpu_index_frequency_filter():
     nodes = np.array([0, 1, 2], dtype=np.int32)
     freqs = np.array([1, 1001, 1000], dtype=np.uint16)
     arrays = oracle.build_kmer_index(kmers, nodes, 101, frequencies=freqs)
-    tpu = ki.TpuKmerIndex.from_arrays(arrays)
-    slots = layout.query_table(tpu.table, kmers)
-    slot_counts = np.bincount(slots, minlength=tpu.table.n_slots)
-    np.testing.assert_array_equal(tpu.node_counts(slot_counts), [1, 0, 1])
-    np.testing.assert_array_equal(tpu.node_counts(slot_counts, max_frequency=2000), [1, 1, 1])
+    dev_index = ki.TpuKmerIndex.from_arrays(arrays)
+    slots = layout.query_table(dev_index.table, kmers)
+    slot_counts = np.bincount(slots, minlength=dev_index.table.n_slots)
+    np.testing.assert_array_equal(dev_index.node_counts(slot_counts), [1, 0, 1])
+    np.testing.assert_array_equal(dev_index.node_counts(slot_counts, max_frequency=2000), [1, 1, 1])
 
 
 def test_tpuidx_file_roundtrip(tmp_path):
     index = ki.build_toy_index(n_unique=300, k=31, n_nodes=100, seed=7)
-    tpu = ki.TpuKmerIndex.from_arrays(index)
+    dev_index = ki.TpuKmerIndex.from_arrays(index)
     path = tmp_path / "index.tpuidx.npz"
-    tpu.to_file(path)
+    dev_index.to_file(path)
     loaded = ki.load_index(path)
-    np.testing.assert_array_equal(loaded.table.key_lo, tpu.table.key_lo)
-    np.testing.assert_array_equal(loaded.table.key_hi, tpu.table.key_hi)
-    assert loaded.table.max_probe == tpu.table.max_probe
-    np.testing.assert_array_equal(loaded.entry_slot, tpu.entry_slot)
-    assert loaded.max_node_id == tpu.max_node_id
+    np.testing.assert_array_equal(loaded.table.key_lo, dev_index.table.key_lo)
+    np.testing.assert_array_equal(loaded.table.key_hi, dev_index.table.key_hi)
+    assert loaded.table.max_probe == dev_index.table.max_probe
+    np.testing.assert_array_equal(loaded.entry_slot, dev_index.entry_slot)
+    assert loaded.max_node_id == dev_index.max_node_id
 
 
 def test_load_index_reference_form(tmp_path):
     index = ki.build_toy_index(n_unique=300, k=31, n_nodes=100, seed=8)
     path = tmp_path / "index.npz"
     ki.save_reference_npz(path, index)
-    tpu = ki.load_index(path)
-    assert tpu.n_unique == len(np.unique(index.kmers))
-    assert tpu.max_node_id == index.max_node_id()
+    dev_index = ki.load_index(path)
+    assert dev_index.n_unique == len(np.unique(index.kmers))
+    assert dev_index.max_node_id == index.max_node_id()
 
 
 def test_load_index_counter_form(tmp_path):
     keys = np.unique(np.random.default_rng(9).integers(0, 1 << 62, 100, dtype=np.uint64))
     path = tmp_path / "counter.npz"
     np.savez(path, counter_keys=keys)
-    tpu = ki.load_index(path)
-    assert tpu.n_unique == len(keys)
-    slots = layout.query_table(tpu.table, keys)
-    slot_counts = np.bincount(slots, minlength=tpu.table.n_slots).astype(np.uint32)
-    got_kmers, got_counts = tpu.kmer_counts(slot_counts)
+    dev_index = ki.load_index(path)
+    assert dev_index.n_unique == len(keys)
+    slots = layout.query_table(dev_index.table, keys)
+    slot_counts = np.bincount(slots, minlength=dev_index.table.n_slots).astype(np.uint32)
+    got_kmers, got_counts = dev_index.kmer_counts(slot_counts)
     order = np.argsort(got_kmers)
     np.testing.assert_array_equal(np.sort(got_kmers), np.sort(keys))
     np.testing.assert_array_equal(got_counts[order], 1)
@@ -157,25 +157,25 @@ def test_load_bundle(tmp_path):
     bundle = tmp_path / "bundle.zip"
     with zipfile.ZipFile(bundle, "w") as zf:
         zf.writestr("kmer_index.npz", inner.getvalue())
-    tpu = ki.load_index(bundle)
-    assert tpu.max_node_id == index.max_node_id()
+    dev_index = ki.load_index(bundle)
+    assert dev_index.max_node_id == index.max_node_id()
 
 
 def test_index_get_nodes():
     kmers = np.array([5, 9, 5], dtype=np.uint64)
     nodes = np.array([10, 11, 12], dtype=np.int32)
     arrays = oracle.build_kmer_index(kmers, nodes, 101)
-    tpu = ki.TpuKmerIndex.from_arrays(arrays)
-    np.testing.assert_array_equal(np.sort(tpu.get(5)), [10, 12])
-    np.testing.assert_array_equal(tpu.get(9), [11])
-    assert len(tpu.get(12345)) == 0
+    dev_index = ki.TpuKmerIndex.from_arrays(arrays)
+    np.testing.assert_array_equal(np.sort(dev_index.get(5)), [10, 12])
+    np.testing.assert_array_equal(dev_index.get(9), [11])
+    assert len(dev_index.get(12345)) == 0
 
 
 def test_empty_index():
-    tpu = ki.TpuKmerIndex.from_counter_keys(np.zeros(0, dtype=np.uint64))
-    slots = layout.query_table(tpu.table, np.array([1, 2, 3], dtype=np.uint64))
+    dev_index = ki.TpuKmerIndex.from_counter_keys(np.zeros(0, dtype=np.uint64))
+    slots = layout.query_table(dev_index.table, np.array([1, 2, 3], dtype=np.uint64))
     np.testing.assert_array_equal(slots, -1)
-    counts = tpu.node_counts(np.zeros(tpu.table.n_slots, np.uint32))
+    counts = dev_index.node_counts(np.zeros(dev_index.table.n_slots, np.uint32))
     assert counts.shape == (1,)
 
 
@@ -218,13 +218,13 @@ def test_adversarial_real_writer_npz(tmp_path):
     assert loaded.nodes.dtype == np.int32
     assert loaded.modulo == index.modulo
     np.testing.assert_array_equal(loaded.kmers, index.kmers)
-    # end-to-end: counts through the TPU layout match the oracle probe
-    tpu = ki.load_index(str(path))
+    # end-to-end: counts through the device layout match the oracle probe
+    dev_index = ki.load_index(str(path))
     queries = np.concatenate([index.kmers[:80], np.array([5, 6], dtype=np.uint64)])
-    slot_counts = np.zeros(tpu.table.n_slots, dtype=np.uint32)
-    slots = layout.query_table(tpu.table, queries)
+    slot_counts = np.zeros(dev_index.table.n_slots, dtype=np.uint32)
+    slots = layout.query_table(dev_index.table, queries)
     np.add.at(slot_counts, slots[slots >= 0], 1)
-    got = tpu.node_counts(slot_counts)
+    got = dev_index.node_counts(slot_counts)
     want = oracle.map_kmers_to_index(
         index, queries, max_node_id=int(index.nodes.max())
     )
@@ -249,8 +249,8 @@ def test_minimal_index_field_subset(tmp_path):
     assert (loaded.n_kmers >= 0).all()
     # derived bucket lengths must reproduce the original bucket structure
     np.testing.assert_array_equal(loaded.n_kmers, index.n_kmers)
-    tpu = ki.load_index(str(path))
-    assert tpu.n_unique == len(np.unique(index.kmers))
+    dev_index = ki.load_index(str(path))
+    assert dev_index.n_unique == len(np.unique(index.kmers))
 
 
 def test_sentinel_colliding_key_reseeds_and_stays_queryable():
@@ -267,38 +267,33 @@ def test_sentinel_colliding_key_reseeds_and_stays_queryable():
     assert table.seed != 0  # the build had to walk away from seed 0
     slots = layout.query_table(table, keys)
     assert (slots >= 0).all() and len(np.unique(slots)) == len(keys)
-    # and the stream path counts it exactly (interpret mode)
+    # and the device probe counts it exactly
     import jax.numpy as jnp
 
-    from kmer_mapper_tpu.ops import stream_probe
+    from kmer_mapper_tpu.ops import probe
     from kmer_mapper_tpu.ops.u32hash import split_u64
 
     qlo, qhi = split_u64(np.array([evil, evil, 5, 777], dtype=np.uint64))
-    out = stream_probe.stream_probe_count(
-        *map(jnp.asarray, stream_probe.plane_keys(table.key_lo, table.key_hi)),
-        jnp.zeros(table.n_slots, jnp.uint32),
-        jnp.asarray(qlo),
-        jnp.asarray(qhi),
-        jnp.ones(4, bool),
-        table.seed,
-        table.max_probe,
-        cap=8,
-        interpret=True,
+    bucket, mask = probe.probe_hits(
+        jnp.asarray(table.key_lo), jnp.asarray(table.key_hi),
+        jnp.asarray(qlo), jnp.asarray(qhi), table.max_probe, table.seed,
     )
-    out = stream_probe.plane_to_slot(np.asarray(out), table.n_buckets)
+    out = np.asarray(probe.accumulate_scatter(
+        jnp.zeros(table.n_slots, jnp.uint32), bucket, mask, jnp.ones(4, bool)
+    ))
     assert out[slots[0]] == 2 and out.sum() == 3
 
 
 def test_tpuidx_rejects_out_of_range_max_probe(tmp_path):
     """A .tpuidx whose table_max_probe exceeds layout.MAX_PROBE_HARD is a
-    corrupt/foreign file: loading must fail loudly instead of letting the
-    stream kernel's schedule silently drop hits past its round limit."""
+    corrupt/foreign file: loading must fail loudly instead of unrolling an
+    absurd number of probe rounds."""
     rng = np.random.default_rng(11)
     keys = np.unique(rng.integers(0, 1 << 62, 500, dtype=np.uint64))
     nodes = rng.integers(0, 50, len(keys)).astype(np.int32)
-    tpu = ki.TpuKmerIndex.from_entries(keys, nodes)
+    dev_index = ki.TpuKmerIndex.from_entries(keys, nodes)
     path = tmp_path / "i.tpuidx.npz"
-    tpu.to_file(path)
+    dev_index.to_file(path)
     with np.load(path) as data:
         fields = {k: data[k] for k in data.files}
     fields["table_max_probe"] = np.int64(layout.MAX_PROBE_HARD + 1)
@@ -307,30 +302,24 @@ def test_tpuidx_rejects_out_of_range_max_probe(tmp_path):
     with pytest.raises(ValueError, match="table_max_probe"):
         ki.TpuKmerIndex.from_file(bad)
 
-    # deep-but-plausible max_probe loads fine; the stream kernel then refuses
-    # a schedule it cannot cover at the configured augmentation
+    # deep-but-plausible max_probe loads fine and the gather probe runs
+    # every round: counts stay exact
     fields["table_max_probe"] = np.int64(9)
     deep = tmp_path / "deep.tpuidx.npz"
     np.savez(deep, **fields)
     idx = ki.TpuKmerIndex.from_file(deep)
-    import jax.numpy as jnp
+    assert idx.table.max_probe == 9
+    from kmer_mapper_tpu.models.mapper import KmerMapper, MapperConfig
 
-    from kmer_mapper_tpu.ops import stream_probe
-
-    with pytest.raises(ValueError, match="schedule limit"):
-        stream_probe.stream_probe_count(
-            *map(
-                jnp.asarray,
-                stream_probe.plane_keys(idx.table.key_lo, idx.table.key_hi),
-            ),
-            jnp.zeros(idx.table.n_slots, jnp.uint32),
-            jnp.zeros(128, jnp.uint32),
-            jnp.zeros(128, jnp.uint32),
-            jnp.ones(128, bool),
-            idx.table.seed,
-            9,
-            interpret=True,
-        )
+    queries = np.concatenate([keys, keys[:7], np.arange(5, dtype=np.uint64)])
+    mapper = KmerMapper(idx, MapperConfig(k=31, buf=256, max_reads=16))
+    mapper.map_hashes(queries)
+    slots = layout.query_table(idx.table, queries)
+    np.testing.assert_array_equal(
+        mapper.slot_counts(),
+        np.bincount(slots[slots >= 0], minlength=idx.table.n_slots),
+    )
+    assert int(mapper.slot_counts().sum()) == len(keys) + 7
 
 
 def _try_build_reference(keys, n_buckets, seed, max_probe_limit=layout.MAX_PROBE_LIMIT):

@@ -16,8 +16,8 @@ def _setup(rng, n=400):
 
 def test_in_index_matches_oracle():
     rng = np.random.default_rng(0)
-    arrays, tpu = _setup(rng)
-    mapper = KmerMapper(tpu, MapperConfig(k=31, buf=256, max_reads=16))
+    arrays, dev_index = _setup(rng)
+    mapper = KmerMapper(dev_index, MapperConfig(k=31, buf=256, max_reads=16))
     queries = np.concatenate(
         [rng.choice(arrays.kmers, 300), rng.integers(0, 1 << 62, 200, dtype=np.uint64)]
     )
@@ -28,36 +28,20 @@ def test_in_index_matches_oracle():
 
 def test_save_load_state_roundtrip(tmp_path):
     rng = np.random.default_rng(1)
-    arrays, tpu = _setup(rng)
+    arrays, dev_index = _setup(rng)
     config = MapperConfig(k=31, buf=256, max_reads=16)
-    mapper = KmerMapper(tpu, config)
+    mapper = KmerMapper(dev_index, config)
     q1 = rng.choice(arrays.kmers, 500)
     q2 = rng.choice(arrays.kmers, 700)
     mapper.map_hashes(q1)
     path = tmp_path / "state.npz"
     mapper.save_state(path)
 
-    resumed = KmerMapper(tpu, config)
+    resumed = KmerMapper(dev_index, config)
     resumed.load_state(path)
     resumed.map_hashes(q2)
 
-    full = KmerMapper(tpu, config)
+    full = KmerMapper(dev_index, config)
     full.map_hashes(np.concatenate([q1, q2]))
     np.testing.assert_array_equal(resumed.node_counts(), full.node_counts())
     assert resumed.n_kmers_mapped == full.n_kmers_mapped
-
-
-def test_auto_stream_cap_tracks_block_density():
-    from kmer_mapper_tpu.models.mapper import auto_stream_cap
-
-    # the measured v5e production point (plane kernel, r9_cfg_sweep):
-    # 64 Mi chunk / 4 streams, 8192 blocks, 151bp reads -> cap 2304
-    assert auto_stream_cap(16 << 20, 1 << 20, read_len=151, streams=4) == 2304
-    # denser tables (more blocks) get smaller tiles, floor 512
-    assert auto_stream_cap(16 << 20, 1 << 23) == 512
-    # small tables with few blocks cap out at the 10240-lane ceiling
-    assert auto_stream_cap(64 << 20, 1 << 17) == 10240
-    assert auto_stream_cap(64 << 20, 1 << 17, streams=4) == 2560
-    # always a multiple of 128
-    for buf, nb in ((1 << 21, 1 << 14), (32 << 20, 1 << 21)):
-        assert auto_stream_cap(buf, nb) % 128 == 0

@@ -228,10 +228,10 @@ def test_kmer_mapper_drop_in_package():
     assert callable(twobit_swap) and hasattr(ACTGTwoBitEncoding, "from_string")
 
     # the re-exports are the SAME objects as the kmer_mapper_tpu bodies
-    import kmer_mapper_tpu.mapper as tpu_mapper
+    import kmer_mapper_tpu.mapper as pkg_mapper
 
-    assert map_kmers_to_graph_index is tpu_mapper.map_kmers_to_graph_index
-    assert in_graph_index is tpu_mapper.in_graph_index
+    assert map_kmers_to_graph_index is pkg_mapper.map_kmers_to_graph_index
+    assert in_graph_index is pkg_mapper.in_graph_index
 
     # KAGE's per-batch call works through the drop-in path end to end
     rng = np.random.default_rng(7)

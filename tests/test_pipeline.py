@@ -133,12 +133,12 @@ def test_cli_convert_index_then_map(tmp_path):
     arrays = _index_from_reads(rng, reads, k)
     ref_path = tmp_path / "index.npz"
     ki.save_reference_npz(ref_path, arrays)
-    tpu_path = tmp_path / "index.tpuidx.npz"
-    run_argument_parser(["convert-index", "-i", str(ref_path), "-o", str(tpu_path)])
+    prebuilt_path = tmp_path / "index.tpuidx.npz"
+    run_argument_parser(["convert-index", "-i", str(ref_path), "-o", str(prebuilt_path)])
     reads_path = _write_fasta(tmp_path / "reads.fa", reads)
     out = tmp_path / "counts"
     run_argument_parser(
-        ["map", "-i", str(tpu_path), "-f", reads_path, "-o", str(out), "-k", str(k)]
+        ["map", "-i", str(prebuilt_path), "-f", reads_path, "-o", str(out), "-k", str(k)]
     )
     got = np.load(str(out) + ".npy")
     np.testing.assert_array_equal(got, _oracle_counts(arrays, reads, k))
@@ -283,7 +283,7 @@ def test_map_file_uniform_reads_picks_fixed_read_len(tmp_path):
     )
     assert mapper.config.read_len == L
     for packed, lengths, n_bases, _, n_invalid, strided in chunks:
-        # CPU default_config picks the gather probe, so chunks stay continuous
+        assert strided  # peek-detected read_len: packed for the plane step
         mapper.map_chunk(packed, lengths, n_bases, n_invalid, strided=strided)
     assert mapper._ragged_step is None  # every chunk took the fast path
     np.testing.assert_array_equal(
@@ -356,117 +356,21 @@ def test_sharded_mapper_ragged_batch_falls_back(tmp_path):
         for batch in batch_packed_chunks(packed, mapper.n_data, config.packed_words,
                                          config.max_reads):
             mapper.map_batch(*batch)
-    assert mapper._ragged_step is not None
+    assert set(mapper._steps) == {"plane", "ragged"}
     np.testing.assert_array_equal(
         mapper.node_counts(), _oracle_counts(arrays, uniform + ragged, k)
     )
 
 
-def test_buf_floor_and_paged_flag(monkeypatch):
-    """On TPU the device-buffer floor is a uniform 64 Mi (multi-stream sorted
-    segments for fixed-read-length files; tile amortization for large paged
-    tables); the paged-ness flag — which selects streams=1 for large tables —
-    must come from the kernel's own plan_schedule (no drift)."""
-    from types import SimpleNamespace
-
-    import jax
-
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-
-    rng = np.random.default_rng(0)
-    reads = _make_reads(rng)
-    small = ki.TpuKmerIndex.from_arrays(_index_from_reads(rng, reads, 31))
-    assert pipeline._buf_floor(small) == (64 << 20, False)
-
-    big_table = SimpleNamespace(
-        n_buckets=4 << 20,
-        max_probe=5,
-        block_max_probe=lambda: np.full((4 << 20) // 128, 2, np.int32),
-    )
-    big = SimpleNamespace(table=big_table)
-    assert pipeline._buf_floor(big) == (64 << 20, True)
-    # sharded 8 ways each shard's schedule is small, but the self-contained
-    # entries are (1 + 2S) words wide, so this dense synthetic shard (every
-    # block at probe bound 2) still pages at the 32 Mi probe
-    assert pipeline._buf_floor(big, n_shards=8) == (64 << 20, True)
-    assert pipeline._buf_floor(None) == (64 << 20, False)
-
-    # human-scale tables (>= 2^25 buckets per chip) raise the floor to
-    # 128 Mi (150M-key drill: bigger chunks amortize the per-chunk tile
-    # count); sharded 8 ways each shard is below the gate and the floor
-    # drops back. Since the self-contained-schedule kernel these tables
-    # plan at group=1 like everything else (the old group>=4 SMEM cliff is
-    # gone) — the gate is a plain bucket-count threshold.
-    from kmer_mapper_tpu.ops import stream_probe
-
-    huge_table = SimpleNamespace(
-        n_buckets=32 << 20,
-        max_probe=8,
-        block_max_probe=lambda: np.full((32 << 20) // 128, 2, np.int32),
-    )
-    huge = SimpleNamespace(table=huge_table)
-    assert stream_probe.min_feasible_group(32 << 20) == 1
-    assert pipeline._buf_floor(huge) == (128 << 20, True)
-    assert pipeline._buf_floor(huge, n_shards=8) == (64 << 20, True)
-
-
-def test_make_config_streams_policy(monkeypatch):
-    """The pipeline's multi-stream default (the REAL `_pick_streams`):
-    plane S=4 / ragged S=6 on SMEM-schedule tables; plane S=2 / ragged S=4
-    on paged tables; everything clamped by the schedule's SMEM feasibility
-    (v5e measurements in BASELINE.md)."""
-    from types import SimpleNamespace
-
-    import jax
-
-    from kmer_mapper_tpu.ops import stream_probe
-    import kmer_mapper_tpu.pipeline as pl
-
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-
-    rng = np.random.default_rng(0)
-    reads = _make_reads(rng)
-    small = ki.TpuKmerIndex.from_arrays(_index_from_reads(rng, reads, 31))
-    big_table = SimpleNamespace(
-        n_buckets=4 << 20,
-        max_probe=5,
-        block_max_probe=lambda: np.full((4 << 20) // 128, 2, np.int32),
-    )
-    big = SimpleNamespace(table=big_table)
-    assert pl._buf_floor(small, 31) == (64 << 20, False)
-    assert pl._buf_floor(big, 31) == (64 << 20, True)
-
-    buf = 64 << 20
-    small_n = small.table.n_buckets
-    big_n = big_table.n_buckets
-    assert pl._pick_streams(151, False, buf, 31, small_n) == 4
-    assert pl._pick_streams(0, False, buf, 31, small_n) == 6
-    assert pl._pick_streams(151, True, buf, 31, big_n) == 2
-    assert pl._pick_streams(0, True, buf, 31, big_n) == 4
-    # sub-floor buffers (CPU/test configs) stay single-stream
-    assert pl._pick_streams(151, False, 1 << 16, 31, small_n) == 1
-
-    # feasibility clamp: with self-contained schedule entries the SMEM
-    # bound is the paged-mode page pair, not per-group arrays — every
-    # production stream count is feasible even on human-scale tables, and
-    # the planner accepts what max_feasible_streams reports
-    feas = stream_probe.max_feasible_streams(big_n)
-    assert feas >= 8
-    n_q = 1 << 20
-    plan = stream_probe.plan_schedule(
-        big_n, n_q, cap=512, max_probe=5, streams=6,
-        block_probe=np.full(big_n // 128, 2, np.int32),
-    )
-    assert not plan.use_meta
-    # human-scale tables (>= 2^25 buckets): S=1 — thin per-block windows
-    # make extra streams pure overhead (150M-key drill at group=1:
-    # S=1/2/4 = 158.0/140.0/117.8 Mk/s)
-    huge_n = 32 << 20
-    assert stream_probe.max_feasible_streams(huge_n) >= 8
-    assert pl._pick_streams(0, True, buf, 31, huge_n) == 1
-    assert pl._pick_streams(151, True, 128 << 20, 31, huge_n) == 1
-    # just below the gate the mid-size paged policy still applies
-    assert pl._pick_streams(151, True, buf, 31, (1 << 25) - (1 << 20)) == 2
+@pytest.mark.parametrize(
+    "chunk_size,buf",
+    [(1000, 1 << 16), (2_500_000, 2_506_752), (1 << 30, 64 << 20)],
+)
+def test_device_buffer_policy(chunk_size, buf):
+    """One buffer policy on every backend: the reference's chunk size,
+    clamped to [64 Ki, 64 Mi] bases and rounded up to 8 Ki."""
+    assert pipeline.device_buffer(chunk_size) == buf
+    assert buf % (1 << 13) == 0
 
 
 def test_peek_read_len(tmp_path):
@@ -494,36 +398,25 @@ def test_peek_read_len(tmp_path):
     assert pipeline._peek_read_len(str(tmp_path / "missing.fa"), 9) == 0
 
 
-def test_map_file_stream_packs_strided_from_buffer_one(tmp_path):
-    """With a stream-probe mapper the frame+pack pass emits the word-plane
-    strided layout directly (peek-detected read_len; no restride pass), for
-    both the native and numpy packers — counts bit-exact vs oracle."""
+def test_map_file_packs_strided_from_buffer_one(tmp_path):
+    """On fixed-length reads the frame+pack pass emits the word-plane strided
+    layout directly (peek-detected read_len; no restride pass) — counts
+    bit-exact vs oracle."""
     rng = np.random.default_rng(52)
     k, L = 16, 31
     reads = ["".join(rng.choice(list("ACGTN"), L)) for _ in range(90)]
     arrays = _index_from_reads(rng, [r.replace("N", "A") for r in reads], k)
     index = ki.TpuKmerIndex.from_arrays(arrays)
     path = _write_fasta(tmp_path / "u.fa", reads)
-
-    orig = pipeline.default_config
-
-    def force_stream(**kw):
-        kw["probe"] = "stream"
-        kw["interpret"] = True
-        return orig(**kw)
-
-    pipeline.default_config = force_stream
-    try:
-        mapper, chunks = pipeline.make_mapper_and_chunks(
-            index, path, k=k, chunk_size=1 << 11,
-            map_reverse_complements=False, accumulate="scatter",
-        )
-        assert mapper.config.read_len == L
-        tuples = list(chunks)
-        assert tuples and all(t[5] for t in tuples)  # strided from buffer one
-        for packed, lengths, nb, nr, ninv, strided in tuples:
-            mapper.map_chunk(packed, lengths, nb, ninv, strided=strided)
-        got = mapper.node_counts()
-    finally:
-        pipeline.default_config = orig
-    np.testing.assert_array_equal(got, _oracle_counts(arrays, reads, k))
+    mapper, chunks = pipeline.make_mapper_and_chunks(
+        index, path, k=k, chunk_size=1 << 11,
+        map_reverse_complements=False, accumulate="scatter",
+    )
+    assert mapper.config.read_len == L
+    tuples = list(chunks)
+    assert tuples and all(t[5] for t in tuples)  # strided from buffer one
+    for packed, lengths, nb, nr, ninv, strided in tuples:
+        mapper.map_chunk(packed, lengths, nb, ninv, strided=strided)
+    np.testing.assert_array_equal(
+        mapper.node_counts(), _oracle_counts(arrays, reads, k)
+    )

@@ -1,25 +1,22 @@
-"""Fixed-read-length word-plane fast path: strided packing, restride, plane
-hash, and the plane chunk step — all bit-exact vs the continuous path and the
+"""Fixed-read-length word-plane path: strided packing, restride, plane hash,
+and the plane chunk step — all bit-exact vs the continuous path and the
 numpy oracle.
 
-The plane path (``hashing.plane_hash_mixed`` + ``stream_probe_count_mixed``)
-replaces the interleaved rolling hash + lane-misaligned window slice with
-contiguous word-plane shift/ORs over stride-padded reads (measured 0.83 vs
-4.7 ms per 16 Mi chunk on v5e, scripts/r4_plane_hash.py). Counting semantics
-must be identical to the ragged/continuous paths; these tests pin that.
+The plane path (``hashing.plane_hash_mixed`` + the gather probe) replaces the
+interleaved rolling hash + window slice with contiguous word-plane
+shift/ORs over stride-padded reads. Counting semantics must be identical to
+the ragged/continuous paths; these tests pin that.
 """
-import dataclasses
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from jax import lax
 
 from kmer_mapper_tpu import oracle, pipeline
 from kmer_mapper_tpu.index import kmer_index as ki
 from kmer_mapper_tpu.io import readers
 from kmer_mapper_tpu.models.mapper import KmerMapper, MapperConfig
-from kmer_mapper_tpu.ops import hashing, stream_probe
+from kmer_mapper_tpu.ops import hashing
+from kmer_mapper_tpu.ops.u32hash import feistel_mix
 
 rng = np.random.default_rng(7)
 
@@ -110,43 +107,35 @@ def test_restride_native_matches_numpy(L, monkeypatch):
 
 @pytest.mark.parametrize("L,k", [(51, 31), (48, 31), (37, 13)])
 def test_plane_hash_matches_sorted_queries(L, k):
+    """The plane hash emits the same multiset of mixed window words as the
+    rolling hash + static slice + feistel_mix over continuous packing; rows
+    past ``n_reads`` are the sentinel pattern."""
     reads = _uniform_reads(30, L)
-    buf, max_reads, cap = 1 << 12, 256, 128
+    buf, max_reads = 1 << 12, 256
     (packed_s, lengths, nb, nr, _, strided), = _pack(reads, buf, max_reads, k, read_len=L)
     assert strided
     (packed_c, *_), = _pack(reads, buf, max_reads, k)
-    arrays, index = _index_for(reads, k)
-    table = index.table
+    _, index = _index_for(reads, k)
+    seed = index.table.seed
     W = L - k + 1
 
-    # continuous path: rolling hash + static slice + sort_queries
+    # continuous path: rolling hash + static slice + mix of the valid rows
     R = buf // L
     lo, hi = hashing.rolling_kmer_hash_packed(jnp.asarray(packed_c), k)
-    lo = lo[: R * L].reshape(R, L)[:, :W].reshape(R * W)
-    hi = hi[: R * L].reshape(R, L)[:, :W].reshape(R * W)
-    valid = (
-        lax.broadcasted_iota(jnp.int32, (R, W), 0) < nr
-    ).reshape(R * W)
-    old_lo, old_hi = stream_probe.sort_queries(
-        lo, hi, valid, table.n_buckets, table.seed, pad_to=cap
-    )
+    lo = lo[: R * L].reshape(R, L)[:, :W][:nr].reshape(-1)
+    hi = hi[: R * L].reshape(R, L)[:, :W][:nr].reshape(-1)
+    old_lo, old_hi = feistel_mix(lo, hi, seed=seed, xp=jnp)
+    old = np.sort(np.asarray(old_lo).astype(np.uint64) << np.uint64(32)
+                  | np.asarray(old_hi).astype(np.uint64))
 
-    # plane path: strided packing + plane hash + plain sort
-    m_lo, m_hi = hashing.plane_hash_mixed(
-        jnp.asarray(packed_s), k, L, jnp.int32(nr), table.seed, pad_to=cap
-    )
-    new_lo, new_hi = lax.sort((m_lo, m_hi), dimension=0, num_keys=1, is_stable=False)
-
-    n_valid = nr * W
-    assert int(jnp.sum(new_lo != stream_probe.INVALID_WORD)) >= n_valid
-    np.testing.assert_array_equal(
-        np.asarray(old_lo)[:n_valid], np.asarray(new_lo)[:n_valid]
-    )
-    np.testing.assert_array_equal(
-        np.asarray(old_hi)[:n_valid], np.asarray(new_hi)[:n_valid]
-    )
-    # everything past the valid prefix is the invalid pattern in both
-    assert np.all(np.asarray(new_lo)[n_valid:] == stream_probe.INVALID_WORD)
+    m_lo, m_hi = hashing.plane_hash_mixed(jnp.asarray(packed_s), k, L, jnp.int32(nr), seed)
+    m_lo, m_hi = np.asarray(m_lo), np.asarray(m_hi)
+    assert len(m_lo) == W * readers.strided_rows(buf, L)
+    real = ~((m_lo == hashing.INVALID_WORD) & (m_hi == hashing.INVALID_WORD))
+    assert real.sum() == nr * W
+    new = np.sort(m_lo[real].astype(np.uint64) << np.uint64(32)
+                  | m_hi[real].astype(np.uint64))
+    np.testing.assert_array_equal(old, new)
 
 
 @pytest.mark.parametrize("revcomp", [False, True])
@@ -155,8 +144,7 @@ def test_plane_chunk_step_counts_match_oracle(revcomp):
     reads = _uniform_reads(60, L, with_n=True)
     arrays, index = _index_for(reads, k)
     config = MapperConfig(
-        k=k, buf=1 << 12, max_reads=256, probe="stream", interpret=True,
-        read_len=L, revcomp=revcomp, stream_cap=128,
+        k=k, buf=1 << 12, max_reads=256, read_len=L, revcomp=revcomp,
     )
     mapper = KmerMapper(index, config)
     for packed, lengths, nb, nr, ninv, strided in _pack(
@@ -178,78 +166,6 @@ def test_plane_chunk_step_counts_match_oracle(revcomp):
     np.testing.assert_array_equal(mapper2.node_counts(), mapper.node_counts())
 
 
-@pytest.mark.parametrize("streams,revcomp", [(2, False), (3, False), (2, True)])
-def test_plane_multi_stream_counts_match_oracle(streams, revcomp):
-    """Multi-stream tiles: the chunk's window combos split into S
-    independently sorted segments served by one kernel schedule — counts must
-    be identical to the single-stream plane step and the oracle."""
-    L, k = 51, 31
-    reads = _uniform_reads(70, L, with_n=True)
-    arrays, index = _index_for(reads, k)
-    base = dict(k=k, buf=1 << 12, max_reads=256, probe="stream",
-                interpret=True, read_len=L, revcomp=revcomp, stream_cap=128)
-    mapper = KmerMapper(index, MapperConfig(streams=streams, **base))
-    for packed, lengths, nb, nr, ninv, strided in _pack(
-        reads, 1 << 12, 256, k, read_len=L
-    ):
-        assert strided
-        mapper.map_chunk(packed, lengths, nb, ninv, strided=True)
-    assert mapper.n_kmers_mapped == len(reads) * (L - k + 1)
-    np.testing.assert_array_equal(
-        mapper.node_counts(), _oracle_node_counts(arrays, reads, k, revcomp=revcomp)
-    )
-
-
-def test_plane_multi_stream_paged_schedule(monkeypatch):
-    """streams=2 with the schedule forced into the HBM-paged mode: the paged
-    page rows carry [meta | off_s x streams] — counts must match both the
-    SMEM-mode result and the oracle."""
-    from kmer_mapper_tpu.ops import stream_probe as sp
-
-    L, k = 51, 31
-    reads = _uniform_reads(60, L)
-    arrays, index = _index_for(reads, k)
-    config = MapperConfig(
-        k=k, buf=1 << 12, max_reads=256, probe="stream", interpret=True,
-        read_len=L, stream_cap=128, streams=2,
-    )
-
-    def run():
-        mapper = KmerMapper(index, config)
-        for packed, lengths, nb, nr, ninv, strided in _pack(
-            reads, 1 << 12, 256, k, read_len=L
-        ):
-            mapper.map_chunk(packed, lengths, nb, ninv, strided=strided)
-        return mapper.node_counts()
-
-    meta = run()
-    monkeypatch.setattr(sp, "SMEM_I32_BUDGET", 200)  # force paged mode
-    paged = run()
-    np.testing.assert_array_equal(meta, paged)
-    np.testing.assert_array_equal(meta, _oracle_node_counts(arrays, reads, k))
-
-
-def test_plane_multi_stream_heavy_duplicates():
-    """Skewed queries (one read repeated everywhere) across segment bounds:
-    every stream's window of the hot block must count exactly."""
-    L, k = 37, 21
-    hot = "".join(rng.choice(list("ACGT"), L))
-    reads = [hot] * 90 + _uniform_reads(30, L)
-    arrays, index = _index_for(reads, k)
-    config = MapperConfig(
-        k=k, buf=1 << 12, max_reads=256, probe="stream", interpret=True,
-        read_len=L, stream_cap=128, streams=4,
-    )
-    mapper = KmerMapper(index, config)
-    for packed, lengths, nb, nr, ninv, strided in _pack(
-        reads, 1 << 12, 256, k, read_len=L
-    ):
-        mapper.map_chunk(packed, lengths, nb, ninv, strided=strided)
-    np.testing.assert_array_equal(
-        mapper.node_counts(), _oracle_node_counts(arrays, reads, k)
-    )
-
-
 def test_strided_chunks_generator_mixed_lengths_fallback():
     """Uniform buffers restride + take the plane step; a buffer containing an
     off-length read passes through continuous and takes the ragged step —
@@ -257,10 +173,7 @@ def test_strided_chunks_generator_mixed_lengths_fallback():
     L, k = 37, 21
     reads = _uniform_reads(50, L) + ["ACGT" * 20] + _uniform_reads(50, L)
     arrays, index = _index_for(reads, k)
-    config = MapperConfig(
-        k=k, buf=1 << 11, max_reads=64, probe="stream", interpret=True,
-        read_len=L, stream_cap=128,
-    )
+    config = MapperConfig(k=k, buf=1 << 11, max_reads=64, read_len=L)
     mapper = KmerMapper(index, config)
     tuples = list(
         pipeline._strided_chunks(
@@ -276,28 +189,13 @@ def test_strided_chunks_generator_mixed_lengths_fallback():
     )
 
 
-def test_map_file_stream_plane_end_to_end(tmp_path):
-    """pipeline.map_file with a stream-probe mapper on fixed-length reads
-    drives the plane path (restride inside _strided_chunks) — vs oracle."""
+def test_map_file_plane_end_to_end(tmp_path):
+    """pipeline.map_file on fixed-length reads packs strided from buffer one
+    and drives the plane step — vs oracle."""
     L, k = 31, 16
     reads = _uniform_reads(80, L, with_n=True)
     arrays, index = _index_for(reads, k)
     path = tmp_path / "reads.fa"
     path.write_text("".join(f">r{i}\n{s}\n" for i, s in enumerate(reads)))
-
-    import kmer_mapper_tpu.pipeline as pl
-
-    orig = pl.default_config
-
-    def force_stream(**kw):
-        kw["probe"] = "stream"
-        kw["interpret"] = True
-        return orig(**kw)
-
-    pl.default_config = force_stream
-    try:
-        got = pipeline.map_file(index, str(path), k=k, chunk_size=1 << 11,
-                                progress=False)
-    finally:
-        pl.default_config = orig
+    got = pipeline.map_file(index, str(path), k=k, chunk_size=1 << 11, progress=False)
     np.testing.assert_array_equal(got, _oracle_node_counts(arrays, reads, k))

@@ -93,7 +93,7 @@ def test_sharded_probe_chained_high_load():
     n_buckets = layout._next_pow2(int(np.ceil(len(keys) / layout.BUCKET_KEYS / 0.85)))
     table = layout.build_table(keys, n_buckets=n_buckets)
     slots = layout.query_table(table, keys)
-    tpu = ki.TpuKmerIndex(
+    dev_index = ki.TpuKmerIndex(
         table=table,
         entry_slot=slots.astype(np.int32),
         entry_node=np.arange(len(keys), dtype=np.int32),
@@ -104,81 +104,12 @@ def test_sharded_probe_chained_high_load():
     k = 31
     mesh = make_mesh(n_devices=8, index_parallel=8)
     config = MapperConfig(k=k, buf=256, max_reads=16)
-    mapper = ShardedKmerMapper(tpu, config, mesh)
+    mapper = ShardedKmerMapper(dev_index, config, mesh)
     reads = [
         "".join(oracle.ALPHABET[(int(key) >> (2 * i)) & 3] for i in range(k)) for key in keys
     ]
     _run(mapper, reads, config)
     np.testing.assert_array_equal(mapper.node_counts(), 1)
-
-
-def test_sharded_stream_probe_matches_oracle():
-    """Stream (sort + MXU) probe inside shard_map: chain-block-aligned table
-    shards, interpret-mode kernel, bit-exact vs oracle."""
-    rng = np.random.default_rng(77)
-    k = 9
-    reads, arrays, expect = _setup(rng, k, n_reads=100)
-    # force a table big enough that each of 2 index shards holds >= 1 chain block
-    unique = np.unique(arrays.kmers)
-    table = layout.build_table(unique, n_buckets=2 * layout.CHAIN_BLOCK)
-    slots = layout.query_table(table, arrays.kmers)
-    tpu = ki.TpuKmerIndex(
-        table=table,
-        entry_slot=slots.astype(np.int32),
-        entry_node=arrays.nodes,
-        entry_frequency=arrays.frequencies,
-        max_node_id=arrays.max_node_id(),
-        n_unique=len(unique),
-    )
-    mesh = make_mesh(n_devices=4, index_parallel=2)
-    config = MapperConfig(
-        k=k, buf=1024, max_reads=64, probe="stream", interpret=True
-    )
-    mapper = ShardedKmerMapper(tpu, config, mesh)
-    _run(mapper, reads, config)
-    np.testing.assert_array_equal(mapper.node_counts(), expect)
-
-    # fused revcomp on the sharded stream path
-    config_rc = MapperConfig(
-        k=k, buf=1024, max_reads=64, probe="stream", interpret=True, revcomp=True
-    )
-    mapper_rc = ShardedKmerMapper(tpu, config_rc, mesh)
-    _run(mapper_rc, reads, config_rc)
-    codes = [oracle.encode_string(r) for r in reads]
-    fwd = oracle.kmer_hashes_ragged(
-        np.concatenate(codes), np.array([len(c) for c in codes]), k
-    )
-    queries = np.concatenate([fwd, oracle.revcomp_hash(fwd, k)])
-    expect_rc = oracle.map_kmers_to_index(arrays, queries)
-    np.testing.assert_array_equal(mapper_rc.node_counts(), expect_rc)
-
-
-def test_sharded_ragged_multistream_matches_oracle():
-    """streams=3 on the sharded RAGGED stream step (read_len == 0): each
-    shard sorts its query stream as 3 independent segments
-    (stream_probe.mix_pad_segments) — counts stay oracle-exact across
-    shard-local bucket ranges."""
-    rng = np.random.default_rng(78)
-    k = 9
-    reads, arrays, expect = _setup(rng, k, n_reads=100)
-    unique = np.unique(arrays.kmers)
-    table = layout.build_table(unique, n_buckets=2 * layout.CHAIN_BLOCK)
-    slots = layout.query_table(table, arrays.kmers)
-    tpu = ki.TpuKmerIndex(
-        table=table,
-        entry_slot=slots.astype(np.int32),
-        entry_node=arrays.nodes,
-        entry_frequency=arrays.frequencies,
-        max_node_id=arrays.max_node_id(),
-        n_unique=len(unique),
-    )
-    mesh = make_mesh(n_devices=4, index_parallel=2)
-    config = MapperConfig(
-        k=k, buf=1024, max_reads=64, probe="stream", interpret=True, streams=3
-    )
-    mapper = ShardedKmerMapper(tpu, config, mesh)
-    _run(mapper, reads, config)
-    np.testing.assert_array_equal(mapper.node_counts(), expect)
 
 
 def test_sharded_save_load_state_round_trip(tmp_path):
@@ -211,12 +142,28 @@ def test_sharded_save_load_state_round_trip(tmp_path):
         other.load_state(ckpt)
 
 
-def test_sharded_stream_fixed_read_len_plane_path():
-    """Fixed-length reads on the sharded stream path take the word-plane
-    step (host restride + plane hash inside shard_map) — bit-exact vs the
-    oracle, and a batch with an off-length read falls back to the ragged
-    twin with identical totals."""
-    rng = np.random.default_rng(91)
+def _index_with_table(arrays, n_buckets):
+    unique = np.unique(arrays.kmers)
+    table = layout.build_table(unique, n_buckets=n_buckets)
+    slots = layout.query_table(table, arrays.kmers)
+    return ki.TpuKmerIndex(
+        table=table,
+        entry_slot=slots.astype(np.int32),
+        entry_node=arrays.nodes,
+        entry_frequency=arrays.frequencies,
+        max_node_id=arrays.max_node_id(),
+        n_unique=len(unique),
+    )
+
+
+@pytest.mark.parametrize("shape", [(8, 1), (4, 2), (2, 4), (1, 8)])
+def test_sharded_fixed_read_len_plane_path(shape):
+    """Fixed-length reads on the sharded path take the word-plane step (host
+    restride + plane hash inside shard_map) on every mesh shape, including
+    index shards smaller than one chain block — bit-exact vs the oracle, and
+    a batch with an off-length read falls back to the ragged step."""
+    d, x = shape
+    rng = np.random.default_rng(91 + d)
     k, L = 9, 37
     reads = ["".join(rng.choice(list("ACGT"), L)) for _ in range(120)]
     codes = [oracle.encode_string(r) for r in reads]
@@ -230,26 +177,12 @@ def test_sharded_stream_fixed_read_len_plane_path():
     nodes = rng.integers(0, 150, len(entry_kmers)).astype(np.int32)
     arrays = oracle.build_kmer_index(entry_kmers, nodes, 1999)
     expect = oracle.map_kmers_to_index(arrays, read_kmers)
-    unique = np.unique(arrays.kmers)
-    table = layout.build_table(unique, n_buckets=2 * layout.CHAIN_BLOCK)
-    slots = layout.query_table(table, arrays.kmers)
-    tpu = ki.TpuKmerIndex(
-        table=table,
-        entry_slot=slots.astype(np.int32),
-        entry_node=arrays.nodes,
-        entry_frequency=arrays.frequencies,
-        max_node_id=arrays.max_node_id(),
-        n_unique=len(unique),
-    )
-    mesh = make_mesh(n_devices=4, index_parallel=2)
-    config = MapperConfig(
-        k=k, buf=1024, max_reads=64, probe="stream", interpret=True,
-        read_len=L, stream_cap=128,
-    )
-    mapper = ShardedKmerMapper(tpu, config, mesh)
+    dev_index = _index_with_table(arrays, 2 * layout.CHAIN_BLOCK)
+    mesh = make_mesh(n_devices=d * x, index_parallel=x)
+    config = MapperConfig(k=k, buf=1024, max_reads=64, read_len=L)
+    mapper = ShardedKmerMapper(dev_index, config, mesh)
     _run(mapper, reads, config)
-    assert mapper._plane_step is not None  # the plane twin actually ran
-    assert mapper._ragged_step is None
+    assert set(mapper._steps) == {"plane"}  # the plane twin ran, nothing else
     np.testing.assert_array_equal(mapper.node_counts(), expect)
     assert mapper.n_kmers_mapped == len(reads) * (L - k + 1)
 
@@ -259,50 +192,12 @@ def test_sharded_stream_fixed_read_len_plane_path():
     kmers_m = oracle.kmer_hashes_ragged(
         np.concatenate(codes_m), np.array([len(c) for c in codes_m]), k
     )
-    expect_m = oracle.map_kmers_to_index(arrays, kmers_m)
-    mapper_m = ShardedKmerMapper(tpu, config, mesh)
+    mapper_m = ShardedKmerMapper(dev_index, config, mesh)
     _run(mapper_m, reads_mixed, config)
-    assert mapper_m._ragged_step is not None
-    np.testing.assert_array_equal(mapper_m.node_counts(), expect_m)
-
-
-def test_sharded_plane_multi_stream():
-    """streams=2 on the sharded plane path: per-shard block offsets over two
-    independently sorted segments, one tile schedule — bit-exact vs oracle."""
-    rng = np.random.default_rng(93)
-    k, L = 9, 37
-    reads = ["".join(rng.choice(list("ACGT"), L)) for _ in range(100)]
-    codes = [oracle.encode_string(r) for r in reads]
-    read_kmers = oracle.kmer_hashes_ragged(
-        np.concatenate(codes), np.array([len(c) for c in codes]), k
+    assert "ragged" in mapper_m._steps
+    np.testing.assert_array_equal(
+        mapper_m.node_counts(), oracle.map_kmers_to_index(arrays, kmers_m)
     )
-    entry_kmers = np.concatenate(
-        [rng.choice(read_kmers, 150),
-         rng.integers(0, 1 << (2 * k), 80, dtype=np.uint64)]
-    )
-    nodes = rng.integers(0, 120, len(entry_kmers)).astype(np.int32)
-    arrays = oracle.build_kmer_index(entry_kmers, nodes, 1999)
-    expect = oracle.map_kmers_to_index(arrays, read_kmers)
-    unique = np.unique(arrays.kmers)
-    table = layout.build_table(unique, n_buckets=2 * layout.CHAIN_BLOCK)
-    slots = layout.query_table(table, arrays.kmers)
-    tpu = ki.TpuKmerIndex(
-        table=table,
-        entry_slot=slots.astype(np.int32),
-        entry_node=arrays.nodes,
-        entry_frequency=arrays.frequencies,
-        max_node_id=arrays.max_node_id(),
-        n_unique=len(unique),
-    )
-    mesh = make_mesh(n_devices=4, index_parallel=2)
-    config = MapperConfig(
-        k=k, buf=1024, max_reads=64, probe="stream", interpret=True,
-        read_len=L, stream_cap=128, streams=2,
-    )
-    mapper = ShardedKmerMapper(tpu, config, mesh)
-    _run(mapper, reads, config)
-    assert mapper._plane_step is not None
-    np.testing.assert_array_equal(mapper.node_counts(), expect)
 
 
 def test_sharded_plane_revcomp():
@@ -319,7 +214,7 @@ def test_sharded_plane_revcomp():
     unique = np.unique(arrays.kmers)
     table = layout.build_table(unique, n_buckets=2 * layout.CHAIN_BLOCK)
     slots = layout.query_table(table, arrays.kmers)
-    tpu = ki.TpuKmerIndex(
+    dev_index = ki.TpuKmerIndex(
         table=table,
         entry_slot=slots.astype(np.int32),
         entry_node=arrays.nodes,
@@ -328,29 +223,23 @@ def test_sharded_plane_revcomp():
         n_unique=len(unique),
     )
     mesh = make_mesh(n_devices=4, index_parallel=2)
-    config = MapperConfig(
-        k=k, buf=1024, max_reads=64, probe="stream", interpret=True,
-        read_len=L, revcomp=True, stream_cap=128,
-    )
-    mapper = ShardedKmerMapper(tpu, config, mesh)
+    config = MapperConfig(k=k, buf=1024, max_reads=64, read_len=L, revcomp=True)
+    mapper = ShardedKmerMapper(dev_index, config, mesh)
     _run(mapper, reads, config)
-    assert mapper._plane_step is not None
+    assert "plane" in mapper._steps
     queries = np.concatenate([fwd, oracle.revcomp_hash(fwd, k)])
     np.testing.assert_array_equal(
         mapper.node_counts(), oracle.map_kmers_to_index(arrays, queries)
     )
 
 
-@pytest.mark.parametrize(
-    "shape,probe",
-    [((4, 2), "gather"), ((2, 4), "stream"), ((1, 8), "stream")],
-)
-def test_sharded_map_hashes_matches_oracle(shape, probe):
+@pytest.mark.parametrize("shape", [(8, 1), (4, 2), (2, 4), (1, 8)])
+def test_sharded_map_hashes_matches_oracle(shape):
     """ShardedKmerMapper.map_hashes — the KAGE pre-hashed library surface on
     a sharded index (batch over the data axis, each index shard counts its
     keys): counts bit-exact vs the oracle incl. duplicates and misses."""
     d, x = shape
-    rng = np.random.default_rng(100 * d + x + (probe == "stream"))
+    rng = np.random.default_rng(100 * d + x)
     k = 11
     reads, arrays, _ = _setup(rng, k)
     codes = [oracle.encode_string(r) for r in reads]
@@ -365,24 +254,8 @@ def test_sharded_map_hashes_matches_oracle(shape, probe):
         ]
     )
     mesh = make_mesh(n_devices=d * x, index_parallel=x)
-    kwargs = dict(probe=probe)
-    if probe == "stream":
-        kwargs.update(interpret=True, stream_cap=128)
-        # chain-block-aligned shards: one CHAIN_BLOCK per index shard
-        unique = np.unique(arrays.kmers)
-        table = layout.build_table(unique, n_buckets=x * layout.CHAIN_BLOCK)
-        slots = layout.query_table(table, arrays.kmers)
-        index = ki.TpuKmerIndex(
-            table=table,
-            entry_slot=slots.astype(np.int32),
-            entry_node=arrays.nodes,
-            entry_frequency=arrays.frequencies,
-            max_node_id=arrays.max_node_id(),
-            n_unique=len(unique),
-        )
-    else:
-        index = ki.TpuKmerIndex.from_arrays(arrays)
-    config = MapperConfig(k=k, buf=1024, max_reads=64, **kwargs)
+    index = ki.TpuKmerIndex.from_arrays(arrays)
+    config = MapperConfig(k=k, buf=1024, max_reads=64)
     mapper = ShardedKmerMapper(index, config, mesh)
     mapper.map_hashes(batch)
     mapper.map_hashes(batch[:37])  # second, differently-sized batch
@@ -398,133 +271,3 @@ def test_sharded_map_hashes_matches_oracle(shape, probe):
     got2 = mapper.node_counts()
     want2 = want + oracle.map_kmers_to_index(arrays, read_kmers)
     np.testing.assert_array_equal(got2, want2)
-
-
-@pytest.mark.parametrize("streams", [1, 2])
-def test_sharded_paged_schedule_matches_meta(monkeypatch, streams):
-    """The HBM-paged schedule under shard_map (VERDICT r3 weak #1): per-shard
-    re-plan flips to paged when the schedule overflows the (shrunken) SMEM
-    budget, with PAGE forced small so the in-kernel page advance runs — counts
-    bit-exact vs the meta run and the oracle, ragged S=1 and S=2."""
-    from kmer_mapper_tpu.ops import stream_probe as sp
-
-    rng = np.random.default_rng(300 + streams)
-    k = 9
-    reads, arrays, expect = _setup(rng, k, n_reads=150)
-    unique = np.unique(arrays.kmers)
-    table = layout.build_table(unique, n_buckets=4 * layout.CHAIN_BLOCK)
-    slots = layout.query_table(table, arrays.kmers)
-    tpu = ki.TpuKmerIndex(
-        table=table,
-        entry_slot=slots.astype(np.int32),
-        entry_node=arrays.nodes,
-        entry_frequency=arrays.frequencies,
-        max_node_id=arrays.max_node_id(),
-        n_unique=len(unique),
-    )
-    mesh = make_mesh(n_devices=4, index_parallel=2)
-    config = MapperConfig(
-        k=k, buf=2048, max_reads=256, probe="stream", interpret=True,
-        stream_cap=128, streams=streams,
-    )
-
-    def run_once():
-        mapper = ShardedKmerMapper(tpu, config, mesh)
-        _run(mapper, reads, config)
-        return mapper.node_counts()
-
-    nb_local = table.n_buckets // 2
-    meta_plan = sp.plan_schedule(
-        nb_local, 4096, cap=128, max_probe=table.max_probe, streams=streams
-    )
-    assert meta_plan.use_meta
-    meta = run_once()
-    np.testing.assert_array_equal(meta, expect)
-
-    monkeypatch.setattr(sp, "SMEM_I32_BUDGET", 40)
-    monkeypatch.setattr(sp, "PAGE", 16)
-    paged_plan = sp.plan_schedule(
-        nb_local, 4096, cap=128, max_probe=table.max_probe, streams=streams
-    )
-    assert not paged_plan.use_meta and paged_plan.n_pages >= 2
-    paged = run_once()
-    np.testing.assert_array_equal(paged, expect)
-
-
-def test_sharded_plane_paged_schedule(monkeypatch):
-    """Paged schedule on the sharded word-plane (fixed read_len) step: the
-    --index-parallel huge-table combination on the fast path."""
-    from kmer_mapper_tpu.ops import stream_probe as sp
-
-    rng = np.random.default_rng(92)
-    k, L = 9, 37
-    reads = ["".join(rng.choice(list("ACGT"), L)) for _ in range(120)]
-    codes = [oracle.encode_string(r) for r in reads]
-    read_kmers = oracle.kmer_hashes_ragged(
-        np.concatenate(codes), np.array([len(c) for c in codes]), k
-    )
-    entry_kmers = np.concatenate(
-        [rng.choice(read_kmers, 200),
-         rng.integers(0, 1 << (2 * k), 100, dtype=np.uint64)]
-    )
-    nodes = rng.integers(0, 150, len(entry_kmers)).astype(np.int32)
-    arrays = oracle.build_kmer_index(entry_kmers, nodes, 1999)
-    expect = oracle.map_kmers_to_index(arrays, read_kmers)
-    unique = np.unique(arrays.kmers)
-    table = layout.build_table(unique, n_buckets=2 * layout.CHAIN_BLOCK)
-    slots = layout.query_table(table, arrays.kmers)
-    tpu = ki.TpuKmerIndex(
-        table=table,
-        entry_slot=slots.astype(np.int32),
-        entry_node=arrays.nodes,
-        entry_frequency=arrays.frequencies,
-        max_node_id=arrays.max_node_id(),
-        n_unique=len(unique),
-    )
-    mesh = make_mesh(n_devices=4, index_parallel=2)
-    config = MapperConfig(
-        k=k, buf=1024, max_reads=64, probe="stream", interpret=True,
-        read_len=L, stream_cap=128, streams=2,
-    )
-    monkeypatch.setattr(sp, "SMEM_I32_BUDGET", 40)
-    monkeypatch.setattr(sp, "PAGE", 16)
-    mapper = ShardedKmerMapper(tpu, config, mesh)
-    _run(mapper, reads, config)
-    assert mapper._plane_step is not None
-    np.testing.assert_array_equal(mapper.node_counts(), expect)
-
-
-def test_sharded_auto_widens_groups_per_shard(monkeypatch):
-    """ShardedKmerMapper bumps config.group when the per-SHARD schedule base
-    arrays would overflow SMEM (tiny forced budget); counts stay oracle-exact
-    across the mesh."""
-    from kmer_mapper_tpu.ops import stream_probe as sp
-
-    rng = np.random.default_rng(91)
-    k = 9
-    reads, arrays, expect = _setup(rng, k, n_reads=100)
-    unique = np.unique(arrays.kmers)
-    table = layout.build_table(unique, n_buckets=8 * layout.CHAIN_BLOCK)
-    slots = layout.query_table(table, arrays.kmers)
-    tpu = ki.TpuKmerIndex(
-        table=table,
-        entry_slot=slots.astype(np.int32),
-        entry_node=arrays.nodes,
-        entry_frequency=arrays.frequencies,
-        max_node_id=arrays.max_node_id(),
-        n_unique=len(unique),
-    )
-    mesh = make_mesh(n_devices=4, index_parallel=2)  # 4 blocks per shard
-    # self-contained schedule entries leave only tile_bounds in SMEM
-    # (n_groups/coarse words), so forcing the cliff on a tiny table needs
-    # coarse=1 plus a budget below the per-shard tile_bounds length
-    monkeypatch.setattr(sp, "DEFAULT_COARSE", 1)
-    monkeypatch.setattr(sp, "SMEM_I32_BUDGET", 5)
-    assert sp.min_feasible_group(table.n_buckets // 2) > 1
-    config = MapperConfig(
-        k=k, buf=1024, max_reads=64, probe="stream", interpret=True
-    )
-    mapper = ShardedKmerMapper(tpu, config, mesh)
-    assert mapper.config.group == sp.min_feasible_group(table.n_buckets // 2)
-    _run(mapper, reads, config)
-    np.testing.assert_array_equal(mapper.node_counts(), expect)
